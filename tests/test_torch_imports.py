@@ -47,6 +47,8 @@ def test_import_loads_no_jax():
         "import zeroshotsemanticsegmentation_tpu_torch.serving\n"
         "import zeroshotsemanticsegmentation_tpu_torch.models.jax_weights\n"
         "import zeroshotsemanticsegmentation_tpu_torch.data.assets\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.train.steps\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.ops.costail_fused\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'zeroshotsemanticsegmentation_tpu'))\n"
         "assert not bad, bad\n")

@@ -167,3 +167,86 @@ def test_block1_geometry_checks(rng):
     with pytest.raises(ValueError, match="CUDA"):
         tb1.block1_fused(torch.zeros(1, 30, 30, 3), *k, torch.zeros(64),
                          torch.float32)
+
+
+# ------------------------------------------- block 1 under training (K3/K4)
+
+@pytest.fixture
+def plain_train(monkeypatch):
+    """Routes `Conv2Pool` (K3 forward, K4 backward) through the kernels'
+    plain versions, so the CPU runs the training form itself."""
+    monkeypatch.setattr(tb1, "conv2_pool", tb1.conv2_pool_plain)
+    monkeypatch.setattr(tb1, "conv2_pool_backward",
+                        tb1.conv2_pool_plain_backward)
+
+
+@pytest.mark.parametrize("hw", [(30, 34), (30, 26), (78, 82)])
+def test_block1_train_matches_jax_two_stage(rng, jax_interpret, plain_train,
+                                            hw):
+    """The training form (conv1_1 as torch ops, then K3/K4's plain
+    versions) vs the JAX two-stage `fused_block1` (K3 and K4 in interpret
+    mode): fp32 values at atol 1e-4 and the gradients of all five inputs
+    under a weighted-sum loss at relative norm < 1e-4
+    (test_block1_fused.py:62-88)."""
+    xp = rng.randn(2, *hw, 3).astype(np.float32)
+    k1, b1, k2, b2 = _b1_params(rng)
+    gseed = rng.randn(2, (hw[0] - 4) // 2, (hw[1] - 4) // 2,
+                      64).astype(np.float32)
+    jargs = [jnp.asarray(a) for a in (k1, b1, k2, b2, xp)]
+
+    def jloss(k1_, b1_, k2_, b2_, xp_):
+        return jnp.sum(jb1.fused_block1(xp_, k1_, b1_, k2_, b2_,
+                                        dtype=jnp.float32) * gseed)
+
+    want_out = np.asarray(jb1.fused_block1(jargs[4], *jargs[:4],
+                                           dtype=jnp.float32))
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(*jargs)
+    targs = [_oihw(k1).requires_grad_(), T(b1).requires_grad_(),
+             _oihw(k2).requires_grad_(), T(b2).requires_grad_(),
+             T(xp).requires_grad_()]
+    out = tb1.block1_train(targs[4], *targs[:4], torch.float32)
+    np.testing.assert_allclose(out.detach().numpy(), want_out, rtol=0,
+                               atol=1e-4)
+    got = torch.autograd.grad(torch.sum(out * T(gseed)), targs)
+    hwio = lambda g: g.permute(2, 3, 1, 0)  # noqa: E731  OIHW -> HWIO
+    for name, a, b in zip(("k1", "b1", "k2", "b2", "xp"),
+                          (hwio(got[0]), got[1], hwio(got[2]), got[3],
+                           got[4]), want):
+        a, b = a.double().numpy(), np.asarray(b, np.float64)
+        rel = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12)
+        assert rel < 1e-4, (name, rel)
+
+
+def test_block1_train_bf16_within_two_ulp(rng, jax_interpret, plain_train):
+    """bf16 training form vs the fp32 reference and the JAX bf16 two-stage
+    kernel: within 2 bf16 ULPs at the output's max magnitude."""
+    xp = rng.randn(2, 30, 26, 3).astype(np.float32)
+    k1, b1, k2, b2 = _b1_params(rng)
+    jargs = [jnp.asarray(a) for a in (xp, k1, b1, k2, b2)]
+    ref = np.asarray(jb1.xla_block1(*jargs, dtype=jnp.float32))
+    two = np.asarray(jb1.fused_block1(
+        *jargs, dtype=jnp.bfloat16)).astype(np.float32)
+    got = tb1.block1_train(T(xp), _oihw(k1), T(b1), _oihw(k2), T(b2),
+                           torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    ulp_at_scale = np.abs(ref).max() * 2.0 ** -8
+    assert np.abs(got - ref).max() <= 2 * ulp_at_scale
+    assert np.abs(got - two).max() <= 2 * ulp_at_scale
+
+
+def test_block1_op_on_cpu_differentiates_plain(rng):
+    """On the CPU block1_op under grad is block1_plain under autograd, and
+    the training form's checks reject a bad c11 before any launch."""
+    xp = T(rng.randn(1, 30, 34, 3).astype(np.float32))
+    k1, b1, k2, b2 = (T(a) for a in _b1_params(rng))
+    k1 = k1.permute(3, 2, 0, 1).contiguous().requires_grad_()
+    out = tb1.block1_op(xp, k1, b1, k2.permute(3, 2, 0, 1), b2,
+                        torch.float32)
+    assert out.grad_fn is not None
+    with pytest.raises(ValueError, match="even"):
+        tb1.conv2_pool_plain(torch.zeros(1, 9, 10, 64), torch.zeros(
+            64, 64, 3, 3), torch.zeros(64))
+    with pytest.raises(ValueError, match="CUDA"):
+        tb1.conv2_pool(torch.zeros(1, 10, 10, 64), torch.zeros(64, 64, 3, 3),
+                       torch.zeros(64))

@@ -31,3 +31,24 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
     return dev
+
+
+_DEVICE_CONSTS: dict = {}
+_DEVICE_CONSTS_MAX = 256
+
+
+def device_const(key, make, device) -> torch.Tensor:
+    """The host data `make()` returns (a numpy array or CPU tensor) as a
+    tensor on `device`, copied there once per (key, device) and kept: a copy
+    from host memory on every call would wait for the device. Made outside
+    inference mode, so one copy serves inference and training. The oldest
+    entry goes once 256 are kept."""
+    k = (key, str(device))
+    t = _DEVICE_CONSTS.get(k)
+    if t is None:
+        with torch.inference_mode(False):
+            t = torch.as_tensor(make(), device=device)
+        if len(_DEVICE_CONSTS) >= _DEVICE_CONSTS_MAX:
+            del _DEVICE_CONSTS[next(iter(_DEVICE_CONSTS))]
+        _DEVICE_CONSTS[k] = t
+    return t

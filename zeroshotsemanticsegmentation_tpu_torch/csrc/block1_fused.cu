@@ -29,44 +29,17 @@
 // the 4 pixels). The channel group is uniform within a warp, so the weight
 // reads are shared-memory broadcasts. ReLU and the 2x2 max run in registers
 // and only the pooled value is stored. Shared memory stays under 48 KB.
+// The conv1_2 window accumulation and the pooled store live in
+// csrc/block1_tile.cuh, shared with the training kernels.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "block1_tile.cuh"
 
 namespace {
 
-constexpr int kC = 64;                     // block-1 width
-constexpr int kTPH = 8, kTPW = 8;          // pooled outputs per tile
-constexpr int kCH = 2 * kTPH + 2;          // conv1_1 tile rows (18)
-constexpr int kCW = 2 * kTPW + 2;          // conv1_1 tile cols (18)
+using namespace b1tile;
+
 constexpr int kIH = 2 * kTPH + 4;          // input tile rows (20)
 constexpr int kIW = 2 * kTPW + 4;          // input tile cols (20)
-constexpr int kChunk = 8;                  // conv1_1 channels per pass
-constexpr int kCoGroup = 16;               // output channels per thread
-constexpr int kThreads = kTPH * kTPW * (kC / kCoGroup);  // 256
-
-template <typename T> __device__ __forceinline__ float to_float(T v);
-template <> __device__ __forceinline__ float to_float<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(
-    __nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);  // round to nearest even
-}
-
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_float<T>(from_float<T>(v));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) block1_kernel(
@@ -83,7 +56,8 @@ __global__ void __launch_bounds__(kThreads) block1_kernel(
   __shared__ float c11[kChunk][kCH][kCW + 1];
   __shared__ __align__(16) float k2s[kChunk][9][kC];
 
-  const int tid = threadIdx.x;
+  const Window win(threadIdx.x);
+  const int tid = win.tid;
   const int b = blockIdx.z;
   const int py0 = blockIdx.y * kTPH;
   const int px0 = blockIdx.x * kTPW;
@@ -102,15 +76,8 @@ __global__ void __launch_bounds__(kThreads) block1_kernel(
   for (int i = tid; i < 27 * kC; i += kThreads) k1s[i / kC][i % kC] = k1[i];
   if (tid < kC) b1s[tid] = b1[tid];
 
-  const int cg = tid / (kTPH * kTPW);      // warp-uniform channel group
-  const int p = tid % (kTPH * kTPW);
-  const int ly = p / kTPW, lx = p % kTPW;
-
   float acc[4][kCoGroup];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int j = 0; j < kCoGroup; ++j) acc[q][j] = 0.f;
+  zero(acc);
 
   for (int chunk = 0; chunk < kC / kChunk; ++chunk) {
     __syncthreads();  // inputs staged / previous chunk consumed
@@ -132,60 +99,13 @@ __global__ void __launch_bounds__(kThreads) block1_kernel(
       const float v = round_to<T>(round_to<T>(s) + b1s[co]);
       c11[cl][yy][xx] = fmaxf(v, 0.f);
     }
-    // the matching conv1_2 weight slice: k2s[cl][tap][co]
-    for (int i = tid; i < kChunk * 9 * kC; i += kThreads) {
-      const int co = i % kC;
-      const int t = (i / kC) % 9;
-      const int cl = i / (9 * kC);
-      k2s[cl][t][co] = k2[(static_cast<size_t>(t) * kC + chunk * kChunk + cl)
-                          * kC + co];
-    }
+    stage_weights(k2s, k2, chunk, tid);  // the matching conv1_2 slice
     __syncthreads();
-
-    for (int cl = 0; cl < kChunk; ++cl) {
-      float patch[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) patch[i][j] = c11[cl][2 * ly + i][2 * lx + j];
-#pragma unroll
-      for (int t = 0; t < 9; ++t) {
-        const int kh = t / 3, kw = t % 3;
-        const float4* wv =
-            reinterpret_cast<const float4*>(&k2s[cl][t][cg * kCoGroup]);
-        float w[kCoGroup];
-#pragma unroll
-        for (int v = 0; v < kCoGroup / 4; ++v) {
-          const float4 f = wv[v];
-          w[4 * v] = f.x; w[4 * v + 1] = f.y;
-          w[4 * v + 2] = f.z; w[4 * v + 3] = f.w;
-        }
-#pragma unroll
-        for (int a = 0; a < 2; ++a)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const float xv = patch[a + kh][c + kw];
-#pragma unroll
-            for (int j = 0; j < kCoGroup; ++j)
-              acc[a * 2 + c][j] = fmaf(xv, w[j], acc[a * 2 + c][j]);
-          }
-      }
-    }
+    accumulate_chunk(c11, k2s, win, acc);
   }
 
-  const int py = py0 + ly, px = px0 + lx;
-  if (py < ph && px < pw) {
-    T* o = out + ((static_cast<size_t>(b) * ph + py) * pw + px) * kC
-           + cg * kCoGroup;
-#pragma unroll
-    for (int j = 0; j < kCoGroup; ++j) {
-      const float bias = b2[cg * kCoGroup + j];
-      float m = fmaxf(acc[0][j] + bias, 0.f);
-#pragma unroll
-      for (int q = 1; q < 4; ++q) m = fmaxf(m, fmaxf(acc[q][j] + bias, 0.f));
-      o[j] = from_float<T>(m);
-    }
-  }
+  store_pooled<T>(acc, b2, out + static_cast<size_t>(b) * ph * pw * kC,
+                  py0 + win.ly, px0 + win.lx, ph, pw, win);
 }
 
 template <typename T>

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from zeroshotsemanticsegmentation_tpu_torch import device_const
+
 # reference pascal_dataset.py:39 / context_dataset.py:51
 MEAN_BGR = np.array([104.00698793, 116.66876762, 122.67891434])
 
@@ -26,7 +28,7 @@ def prepare_images(images: torch.Tensor) -> torch.Tensor:
     pass through. Matches `transform_image` to float32 precision (uint8 minus
     the float32 mean is one rounding, as in the JAX package)."""
     if images.dtype == torch.uint8:
-        mean = torch.as_tensor(MEAN_BGR, dtype=torch.float32,
-                               device=images.device)
+        mean = device_const("mean_bgr", lambda: MEAN_BGR.astype(np.float32),
+                            images.device)
         return images.flip(-1).to(torch.float32) - mean
     return images

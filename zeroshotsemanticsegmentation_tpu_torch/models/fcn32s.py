@@ -13,6 +13,11 @@ ConvTranspose2d weight; blocks 1-4 run support-pruned (`models.pruned`) when
 is set. Parameters stay fp32; convolutions run in `dtype`. The module is
 built on the card unless `device="cpu"` is passed.
 
+`forward(..., train=True, generator=g)` is the training forward: channel
+dropout after fc6 and fc7 (flax `nn.Dropout(broadcast_dims=(1, 2))`: whole
+channels per sample, kept ones scaled by 1/(1 - rate)) draws its masks from
+the explicit `torch.Generator` `g`; without `train` there is no dropout.
+
 Public layouts are NHWC: images (B, H, W, 3) in, heads (B, h, w, C) out.
 """
 
@@ -86,8 +91,7 @@ class FCN32s(nn.Module):
         self.seenmask_upscore = nn.ConvTranspose2d(
             2, 2, _UPSAMPLE_KERNEL, stride=_UPSAMPLE_STRIDE, bias=False,
             device=device)
-        self.drop6 = nn.Dropout2d(dropout_rate)
-        self.drop7 = nn.Dropout2d(dropout_rate)
+        self.dropout_rate = dropout_rate
         self.reset_parameters(generator)
 
     def width(self, f: int) -> int:
@@ -137,18 +141,42 @@ class FCN32s(nn.Module):
             h = F.max_pool2d(h, 2, 2, ceil_mode=True)
         return h
 
-    def forward(self, x: torch.Tensor, *, mode: str = "both"):
+    def _dropout(self, h: torch.Tensor, train: bool,
+                 generator: torch.Generator | None) -> torch.Tensor:
+        """Channel dropout on NCHW `h`: one keep draw per (sample, channel)
+        from `generator`, kept channels scaled by 1/(1 - rate)."""
+        rate = self.dropout_rate
+        if not train or rate == 0.0:
+            return h
+        if rate >= 1.0:
+            return torch.zeros_like(h)
+        if generator is None:
+            raise ValueError("FCN32s: a training forward with dropout needs "
+                             "an explicit torch.Generator")
+        keep = 1.0 - rate
+        mask = torch.rand((h.shape[0], h.shape[1], 1, 1), generator=generator,
+                          device=h.device) < keep
+        return torch.where(mask, h / keep, torch.zeros_like(h))
+
+    def forward(self, x: torch.Tensor, *, mode: str = "both",
+                train: bool = False,
+                generator: torch.Generator | None = None):
         """mode in {fcn, seenmask, both, raw}; 'raw' returns the 1/32-res
         heads (B, h, w, C) and (B, h, w, 2) for the fused serving kernel.
-        The upsampled heads are fp32 (B, H, W, C)."""
+        The upsampled heads are fp32 (B, H, W, C). `train` turns on the
+        channel dropout, drawn from `generator` (on the input's device)."""
         if mode not in ("fcn", "seenmask", "both", "raw"):
             raise ValueError(f"unexpected forward mode: {mode!r}")
         in_h, in_w = x.shape[1], x.shape[2]
         h = self._blocks(x)
-        h = self.drop6(torch.relu(self._conv("fc6", h)))
-        h = self.drop7(torch.relu(self._conv("fc7", h)))
-        f_small = self._conv("score_fr", h).permute(0, 2, 3, 1)
-        s_small = self._conv("seenmask_score", h).permute(0, 2, 3, 1)
+        h = self._dropout(torch.relu(self._conv("fc6", h)), train, generator)
+        h = self._dropout(torch.relu(self._conv("fc7", h)), train, generator)
+        # only the heads the mode returns are computed
+        f_small = s_small = None
+        if mode != "seenmask":
+            f_small = self._conv("score_fr", h).permute(0, 2, 3, 1)
+        if mode != "fcn":
+            s_small = self._conv("seenmask_score", h).permute(0, 2, 3, 1)
         if mode == "raw":
             return f_small, s_small
 

@@ -242,7 +242,9 @@ def run_pruned_blocks(kbs, x: torch.Tensor, pad1: int, dtype,
         raise AssertionError(("rim", rim))
 
     frame = assemble_frame(probe, vh, vw).to(a.dtype)
-    full = frame[None].expand(B, -1, -1, -1).contiguous(
+    # a fresh tensor, so the slice assignment below never writes into a
+    # tensor autograd saved; gradients reach both the frame and `a`
+    full = frame[None].expand(B, -1, -1, -1).clone(
         memory_format=torch.channels_last)
     full[:, :, s0:s0 + a.shape[2], s0:s0 + a.shape[3]] = a
     return full

@@ -6,15 +6,17 @@ use into its own shared library,
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
-keyed by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one loads at once. `build()` starts one `nvcc` per source,
+keyed by a hash of the source, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source rebuilds and an unchanged one loads at once. `build()` starts one `nvcc` per source,
 all together. Pointers go in as `c_void_p`, ints as `c_int`, and the stream
 is PyTorch's current stream. Every C entry point returns
 `cudaGetLastError()`; `check` raises when it is not 0.
 
 `launch_counts` counts, per kernel, the launches its wrapper made: the
 wrapper adds one where it launches its kernel and nowhere else, so a run can
-show that a path went through the kernel.
+show that a path went through the kernel. A library may hold more than one
+kernel (`block1_train`: K3 forward and K4 backward; `costail_fused`: K5 and
+K6), so the counts have keys of their own.
 """
 
 from __future__ import annotations
@@ -33,11 +35,13 @@ import torch
 _PKG_DIR = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CSRC_DIR = osp.join(_PKG_DIR, "csrc")
 BUILD_DIR = osp.join(_PKG_DIR, "_build")
-KERNELS = ("szn_fused", "block1_fused")
+KERNELS = ("szn_fused", "block1_fused", "block1_train", "costail_fused")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-launch_counts = {name: 0 for name in KERNELS}
+launch_counts = {name: 0 for name in (
+    "szn_fused", "block1_fused", "block1_train_fwd", "block1_train_bwd",
+    "costail_fwd", "costail_bwd")}
 build_logs: dict[str, str] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -59,8 +63,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(osp.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in (f"{name}.cu", *headers):
+        with open(osp.join(CSRC_DIR, f), "rb") as fh:
+            digest.update(fh.read())
     return osp.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from zeroshotsemanticsegmentation_tpu_torch import device_const
+
 
 def bilinear_filter_1d(kernel_size: int) -> np.ndarray:
     """1-D bilinear interpolation filter, reference models.py:11-24."""
@@ -77,10 +79,13 @@ def upsample_bilinear_cropped(x: torch.Tensor, *, stride: int,
     """Fixed bilinear x-stride upsample + crop of a (B, h, w, C) map -> fp32
     (B, out_h, out_w, C), as two interpolation-matrix products."""
     x = x.to(torch.float32)
-    mh = torch.tensor(upsample_matrix(
-        x.shape[1], stride, kernel_size, crop_offset, out_h), device=x.device)
-    mw = torch.tensor(upsample_matrix(
-        x.shape[2], stride, kernel_size, crop_offset, out_w), device=x.device)
+
+    def matrix(in_len: int, out_len: int) -> torch.Tensor:
+        args = (in_len, stride, kernel_size, crop_offset, out_len)
+        return device_const(("upsample_matrix", *args),
+                            lambda: upsample_matrix(*args).copy(), x.device)
+
+    mh, mw = matrix(x.shape[1], out_h), matrix(x.shape[2], out_w)
     y = torch.einsum("oh,bhwc->bowc", mh, x)
     return torch.einsum("pw,bowc->bopc", mw, y)
 

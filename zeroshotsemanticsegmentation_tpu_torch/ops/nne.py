@@ -67,3 +67,16 @@ def infer_labels_szn(fcn_score: torch.Tensor, seenmask_score: torch.Tensor,
     pixel_unseen = torch.argmax(seenmask_score, dim=-1) == 0
     return infer_labels_stitched(fcn_score, embeddings, unseen_class_mask,
                                  pixel_unseen)
+
+
+def infer_labels_forced_unseen(score: torch.Tensor, target: torch.Tensor,
+                               embeddings: torch.Tensor,
+                               unseen_class_mask) -> torch.Tensor:
+    """Oracle stitching from ground-truth membership (reference
+    utils.py:188-192): a pixel whose true class is unseen takes the
+    unseen-restricted NNE, every other pixel the seen-restricted one."""
+    k = embeddings.shape[0]
+    mask = torch.as_tensor(unseen_class_mask, dtype=torch.bool,
+                           device=score.device)
+    pixel_unseen = mask[target.clamp(0, k - 1).long()] & (target >= 0)
+    return infer_labels_stitched(score, embeddings, mask, pixel_unseen)
