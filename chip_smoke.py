@@ -64,7 +64,28 @@ Phases, each of which passes or ends the script with a non-zero exit:
    unfused ones < 1e-4; their times in bf16;
 15. times: the stage-1 step in the default and dot-free modes in turns,
    stage 2, the eval steps, and K7 at each product beside its plain
-   version, torch.matmul and its bound.
+   version, torch.matmul and its bound;
+16. conv1_1 alone (K8) vs its plain version at the JAX tests' shapes and at
+   the block-1 bench's (16, 530, 530, 3): fp32 (TF32 off) max |err| <= 1e-5,
+   bf16 |a - b| <= 2^-8 max(|a|, |b|) + 1e-6 elementwise; K8 -> K3 vs the
+   plain block 1 in fp32 (atol 1e-4); then scripts/torch_bench_block1.py's
+   `run`: each variant's launches with the counts at 0 before it (K8 once
+   in the two-stage forward), and K8's time beside its plain version, the
+   cuDNN conv1_1 + bias + ReLU and its bound, all from that run;
+17. the first-max pool backward (K9) vs its plain version, exactly, in fp32
+   and bf16 with the JAX test's three input kinds and odd extents through
+   `ceil_max_pool_2x2`, and vs F.max_pool2d's autograd; the four pool
+   inputs of blocks 2-5 of the stage-1 step at B=24, 512x512 (read off the
+   model) through `ceil_max_pool_2x2` with the counts at 0 before it, K9
+   and that pass's dx equal to the plain version there; K9's times there
+   beside its plain version, F.max_pool2d's backward and its bound;
+18. the row dot (K10b) vs its plain version at (8, 512, 512, 21) and at odd
+   small shapes (rtol 1e-6, atol 1e-6), K7 at the probe's 512x512 fp32
+   product vs an fp64 product (relative norm < 1e-5), and their times
+   beside plain versions, torch.linalg.vecdot / torch.matmul and bounds;
+19. scripts/torch_probe_h2d.py pallas_dot rowdot_pl, one fresh process per
+   mode: exit code 0, one JSON line per mode, K7 (K10a) and K10b launched,
+   the bandwidths logged.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -72,8 +93,11 @@ The last line of standard output is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
+import os
 import os.path as osp
+import signal
 import subprocess
 import sys
 import time
@@ -106,6 +130,11 @@ PDOT_SHAPES = (("fc6_input_grad", 6936, 4096, 25088, False),
                ("seenmask_score_weight_grad", 4096, 6936, 2, True))
 # the edge shapes of the JAX package's tests/test_pdot.py: (M, K, N)
 PDOT_EDGES = ((8, 128, 128), (17, 21, 33), (130, 257, 140), (1, 300, 1))
+# K8: the JAX test's shapes (tests/test_block1_fused.py:176) and the block-1
+# bench's (scripts/bench_block1.py:16)
+C11_SHAPES = ((2, 38, 42, 3), (2, 66, 34, 3), (16, 530, 530, 3))
+ROWDOT_SHAPE = (8, H, W, 21)      # the probe's rowdot_pl inputs
+PROBE_TIMEOUT_S = 420
 
 
 def fail(msg: str) -> None:
@@ -269,6 +298,331 @@ def phase_eval(dev, model, train_batch, embed, uv, k_cls, log, require,
     return out
 
 
+def load_script(name: str):
+    """scripts/<name>.py as a module."""
+    spec = importlib.util.spec_from_file_location(
+        name, osp.join(ROOT, "scripts", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bf16_bar_misses(a, b) -> int:
+    """Elements of two tensors of bf16 values past 2^-8 max(|a|, |b|) +
+    1e-6 (the atol covers pre-ReLU sums near 0 that the fp32 summation
+    order puts on either side)."""
+    a, b = a.float(), b.float()
+    bar = 2.0 ** -8 * a.abs().maximum(b.abs()) + 1e-6
+    return int(((a - b).abs() > bar).sum().item())
+
+
+def phase_c11(dev, b1, log, require) -> dict:
+    """Phase 16: K8 vs its plain version at C11_SHAPES in fp32 and bf16,
+    K8 -> K3 vs the plain block 1 in fp32, then the block-1 bench's `run`:
+    its launches per variant and K8's times."""
+    import torch
+
+    out = {"max_abs_err_fp32": 0.0, "max_abs_err": 0.0}
+    for shape in C11_SHAPES:
+        xp = torch.randn(*shape, device=dev) * 0.5
+        k1 = torch.randn(64, 3, 3, 3, device=dev) * 0.1
+        bias1 = torch.randn(64, device=dev) * 0.1
+        for dtype in (torch.float32, torch.bfloat16):
+            got = b1.conv1_1_pairs(xp, k1, bias1, dtype)
+            want = b1.conv1_1_pairs_plain(xp, k1, bias1, dtype)
+            torch.cuda.synchronize()
+            require(got.shape == want.shape == (
+                shape[0], shape[1] - 2, (shape[2] - 2) // 2, 128)
+                and got.dtype == dtype, f"K8 output {tuple(got.shape)} "
+                f"{got.dtype} at {shape}")
+            err = (got.float() - want.float()).abs().max().item()
+            if dtype == torch.float32:
+                out["max_abs_err_fp32"] = max(out["max_abs_err_fp32"], err)
+                log(f"[K8] {shape} fp32: max|err| vs plain {err:.3e} (bar "
+                    f"1e-5)")
+                require(err <= 1e-5, f"K8 fp32 error {err} at {shape}")
+            else:
+                misses = bf16_bar_misses(got, want)
+                differ = int((got != want).sum().item())
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                log(f"[K8] {shape} bf16: max|err| vs plain {err:.3e}, "
+                    f"{differ} of {got.numel()} elements differ, {misses} "
+                    f"past 2^-8 max(|a|,|b|) + 1e-6")
+                require(misses == 0, f"K8 bf16: {misses} elements past the "
+                        f"bar at {shape}")
+            del got, want
+        del xp
+    # K8 -> K3 vs the plain block 1, fp32
+    for shape in (C11_SHAPES[1], C11_SHAPES[2]):
+        xp = torch.randn(*shape, device=dev) * 0.5
+        wts = (torch.randn(64, 3, 3, 3, device=dev) * 0.1,
+               torch.randn(64, device=dev) * 0.1,
+               torch.randn(64, 64, 3, 3, device=dev) * 0.05,
+               torch.randn(64, device=dev) * 0.1)
+        c11 = b1.conv1_1_pairs(xp, wts[0], wts[1], torch.float32)
+        got = b1.conv2_pool(c11.view(shape[0], shape[1] - 2, shape[2] - 2, 64),
+                            wts[2], wts[3])
+        with torch.inference_mode():
+            want = b1.block1_plain(xp, *wts, torch.float32)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        log(f"[K8] -> [K3] {shape} fp32 vs plain block 1: max|err| "
+            f"{err:.3e} (bar 1e-4)")
+        require(got.shape == want.shape and err <= 1e-4,
+                f"K8 -> K3 vs plain block 1: {err} at {shape}")
+        del xp, c11, got, want
+    # the block-1 bench entry point: every variant's launches (counts at 0
+    # just before its warm-up call) and times
+    bench = load_script("torch_bench_block1")
+    res = bench.run(iters=20, log=lambda m: log(f"[bench] {m}"))
+    want = {bench.K8: {"conv1_1_pairs": 1}, bench.PLAIN_C11: {},
+            bench.CUDNN_C11: {},
+            "K8 -> K3": {"conv1_1_pairs": 1, "block1_train_fwd": 1},
+            "cuDNN conv1_1 -> K3": {"block1_train_fwd": 1},
+            "plain block 1": {}, "K2 (one kernel)": {"block1_fused": 1}}
+    require(res["launches"] == want, f"the bench's launches: "
+            f"{res['launches']}, expected {want}")
+    ms = res["ms"]
+    out.update(launches=res["launches"]["K8 -> K3"]["conv1_1_pairs"],
+               ms=ms[bench.K8], plain_ms=ms[bench.PLAIN_C11],
+               library_ms=ms[bench.CUDNN_C11],
+               shape=[bench.B, bench.HP, bench.WP, 3], bench_ms=ms)
+    n, ho, wo = bench.B, bench.HP - 2, bench.WP - 2
+    nbytes = n * bench.HP * bench.WP * 3 * 2 + n * ho * wo * 64 * 2 \
+        + 28 * 64 * 4
+    ops = 2.0 * n * ho * wo * 64 * 27
+    out["bound_ms"], out["bound_by"] = bound(nbytes, ops, PEAK_BF16_FLOP_S)
+    log(f"[K8] {tuple(out['shape'])} bf16 (the bench's run): {out['ms']:.4f}"
+        f" ms ({nbytes / out['ms'] / 1e6:.0f} GB/s), plain "
+        f"{out['plain_ms']:.3f}, cuDNN conv1_1+bias+ReLU "
+        f"{out['library_ms']:.4f}, bound {out['bound_ms']:.4f} "
+        f"({out['bound_by']})")
+    return out
+
+
+def phase_pool(dev, model, kernels, log, require) -> dict:
+    """Phase 17: K9 vs its plain version and vs F.max_pool2d's autograd,
+    exactly; the four pool inputs of blocks 2-5 of the B=TRAIN_BATCH
+    stage-1 step through `ceil_max_pool_2x2` with the counts at 0 before
+    it, K9 and that pass's dx equal to the plain version there; K9's times
+    there."""
+    import torch
+    import torch.nn.functional as F
+    from zeroshotsemanticsegmentation_tpu_torch.ops import pool_bwd as pb
+
+    def inputs(kind, shape, dtype):
+        if kind == "dense_ties":
+            x = torch.randint(0, 3, shape, device=dev).float()
+        elif kind == "relu_zeros":
+            x = torch.randn(*shape, device=dev).clamp(min=0)
+            x[x < 0.5] = 0.0
+        else:
+            x = torch.randn(*shape, device=dev)
+        return x.to(dtype)
+
+    def through_autograd(x, g):
+        xs = x.clone().requires_grad_()
+        y = pb.ceil_max_pool_2x2(xs)
+        (dx,) = torch.autograd.grad(y, xs, g)
+        return y.detach(), dx
+
+    def library(x, g):
+        xl = x.permute(0, 3, 1, 2).clone().requires_grad_()
+        yl = F.max_pool2d(xl, 2, 2, ceil_mode=True)
+        (dl,) = torch.autograd.grad(yl, xl, g.permute(0, 3, 1, 2))
+        return yl.detach().permute(0, 2, 3, 1), dl.permute(0, 2, 3, 1)
+
+    checked = 0
+    lib_ok = True
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind in ("dense_ties", "relu_zeros", "smooth"):
+            for shape in ((2, 64, 80, 64), (2, 33, 47, 40), (1, 7, 9, 3)):
+                x = inputs(kind, shape, dtype)
+                gshape = (shape[0], -(-shape[1] // 2), -(-shape[2] // 2),
+                          shape[3])
+                g = torch.randn(*gshape, device=dev).to(dtype)
+                y, dx = through_autograd(x, g)
+                xp = pb._pad(x, shape[1] % 2, shape[2] % 2)
+                want = pb.pool_bwd_plain(xp, y, g)[:, :shape[1], :shape[2]]
+                require(torch.equal(dx, want), f"K9 vs plain {kind} {dtype} "
+                        f"{shape}: {int((dx != want).sum())} elements differ")
+                yl, dl = library(x, g)
+                require(torch.equal(y, yl), f"pool forward vs F.max_pool2d "
+                        f"{kind} {dtype} {shape}")
+                if not torch.equal(dx, dl):
+                    lib_ok = False
+                    log(f"[K9] {kind} {dtype} {shape}: F.max_pool2d's "
+                        f"backward routes {int((dx != dl).sum())} elements "
+                        f"otherwise")
+                checked += 1
+    log(f"[K9] {checked} cases equal to the plain version; F.max_pool2d's "
+        f"autograd {'equal in every case' if lib_ok else 'differs'}")
+    require(lib_ok, "K9 vs F.max_pool2d's autograd")
+
+    # the pool inputs of blocks 2-5, read off a B=2 forward of the model
+    seen = []
+    orig = F.max_pool2d
+
+    def record(x, *a, **k):
+        if x.shape[0] == 2:
+            seen.append(tuple(x.shape))
+        return orig(x, *a, **k)
+
+    with mock.patch.object(F, "max_pool2d", record), torch.inference_mode():
+        model(torch.bfloat16)(torch.randn(2, H, W, 3, device=dev) * 40,
+                              mode="raw")
+    # blocks 2-5: the last four pools (block 1 pools inside K2)
+    shapes = [(TRAIN_BATCH, h, w, c) for _, c, h, w in seen[-4:]]
+    log(f"[K9] pool inputs of blocks 2-5 of the stage-1 step (NHWC): "
+        f"{shapes}")
+    require(len(shapes) == 4 and shapes[0][3] == 128,
+            f"expected the four pools of blocks 2-5: {seen}")
+
+    bf = torch.bfloat16
+    xs_all = [torch.randn(*s, device=dev).clamp(min=0).to(bf).requires_grad_()
+              for s in shapes]
+    gs_all = [torch.randn(s[0], -(-s[1] // 2), -(-s[2] // 2), s[3],
+                          device=dev).to(bf) for s in shapes]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    ys_all = []
+    for x, g in zip(xs_all, gs_all):
+        y = pb.ceil_max_pool_2x2(x)
+        y.backward(g)
+        ys_all.append(y.detach())
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts["pool_bwd"]
+    log(f"[K9] stage-1 pool shapes through ceil_max_pool_2x2: {launches} "
+        f"K9 launches")
+    require(launches == len(shapes), f"K9 launches {launches}")
+    rows = []
+    max_err = 0.0
+    for x, y, g in zip(xs_all, ys_all, gs_all):
+        dx_path, x = x.grad, x.detach()
+        h, w = x.shape[1:3]
+        xp = pb._pad(x, h % 2, w % 2)
+        got = pb.pool_bwd(xp, y, g)
+        want = pb.pool_bwd_plain(xp, y, g)
+        torch.cuda.synchronize()
+        err = max((got.float() - want.float()).abs().max().item(),
+                  (dx_path.float() - want[:, :h, :w].float()).abs().max()
+                  .item())
+        max_err = max(max_err, err)
+        log(f"[K9] {tuple(xp.shape)} bf16: K9 and the counted backward's dx "
+            f"vs plain, max|err| {err:.3e} (bar: equal)")
+        require(torch.equal(got, want)
+                and torch.equal(dx_path, want[:, :h, :w]),
+                f"K9 vs plain at {tuple(xp.shape)}: {int((got != want).sum())}"
+                f" elements differ, the counted backward's dx "
+                f"{int((dx_path != want[:, :h, :w]).sum())}")
+        del got, want, dx_path
+        xl = x.permute(0, 3, 1, 2).requires_grad_()
+        yl = F.max_pool2d(xl, 2, 2, ceil_mode=True)
+        gl = g.permute(0, 3, 1, 2)
+        b_ms, by = bound(2.5 * xp.numel() * 2, xp.numel(), PEAK_FP32_FLOP_S)
+        row = {"shape": list(xp.shape), "dtype": "bfloat16",
+               "max_abs_err": err,
+               "ms": time_ms(lambda: pb.pool_bwd(xp, y, g), iters=20),
+               "plain_ms": time_ms(lambda: pb.pool_bwd_plain(xp, y, g),
+                                   iters=3),
+               "library_ms": time_ms(lambda: torch.autograd.grad(
+                   yl, xl, gl, retain_graph=True), iters=20),
+               "bound_ms": b_ms, "bound_by": by}
+        rows.append(row)
+        log(f"[K9] {tuple(xp.shape)}: {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.3f}, F.max_pool2d backward "
+            f"{row['library_ms']:.4f}, bound {b_ms:.4f} ({by})")
+        del xl, yl, gl
+    return {"launches": launches, "max_abs_err": max_err, "shapes": rows,
+            "cases": checked}
+
+
+def phase_rowdot(dev, rd, pd, log, require) -> dict:
+    """Phase 18: K10b vs its plain version, K7 at the probe's 512x512 fp32
+    product vs fp64, and both kernels' times."""
+    import torch
+
+    out = {}
+    for shape in (ROWDOT_SHAPE, (3, 5, 7, 1), (1, 3, 5, 300), (2, 9, 11, 33)):
+        a = torch.randn(*shape, device=dev)
+        b = torch.randn(*shape, device=dev)
+        got, want = rd.rowdot(a, b), rd.rowdot_plain(a, b)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        log(f"[K10b] {shape}: max|err| vs plain {err:.3e} (rtol 1e-6, atol "
+            f"1e-6)")
+        require(got.shape == shape[:-1]
+                and torch.allclose(got, want, rtol=1e-6, atol=1e-6),
+                f"K10b vs plain at {shape}: {err}")
+        if shape == ROWDOT_SHAPE:
+            out["max_abs_err"] = err
+            out["ms"] = time_ms(lambda: rd.rowdot(a, b), iters=20)
+            out["plain_ms"] = time_ms(lambda: rd.rowdot_plain(a, b), iters=3)
+            out["library_ms"] = time_ms(lambda: torch.linalg.vecdot(a, b),
+                                        iters=20)
+            nbytes = 2 * a.numel() * 4 + got.numel() * 4
+            out["bound_ms"], out["bound_by"] = bound(
+                nbytes, 2.0 * a.numel(), PEAK_FP32_FLOP_S)
+            out["shape"] = list(shape)
+            log(f"[K10b] {shape}: {out['ms']:.4f} ms ({nbytes / out['ms'] / 1e6:.0f}"
+                f" GB/s), plain {out['plain_ms']:.3f}, torch.linalg.vecdot "
+                f"{out['library_ms']:.4f}, bound {out['bound_ms']:.4f} "
+                f"({out['bound_by']})")
+        del a, b, got, want
+    a = torch.randn(512, 512, device=dev)
+    b = torch.randn(512, 512, device=dev)
+    got, want = pd.pdot(a, b), pd.pdot_plain(a, b)
+    r = rel(got, a.double() @ b.double())
+    err = (got - want).abs().max().item()
+    log(f"[K10a] 512x512 fp32 on K7: rel-norm vs fp64 {r:.3e} (bar 1e-5), "
+        f"max|err| vs plain {err:.3e}")
+    require(r < 1e-5, f"K7 at 512x512 fp32: rel {r}")
+    b_ms, by = bound(3 * 512 * 512 * 4, 2.0 * 512 ** 3, PEAK_FP32_FLOP_S)
+    out["k10a"] = {
+        "max_abs_err": err, "rel_norm": r, "shape": [512, 512, 512],
+        "ms": time_ms(lambda: pd.pdot(a, b), iters=20),
+        "plain_ms": time_ms(lambda: pd.pdot_plain(a, b), iters=20),
+        "library_ms": time_ms(lambda: torch.matmul(a, b), iters=20),
+        "bound_ms": b_ms, "bound_by": by}
+    k = out["k10a"]
+    log(f"[K10a] {k['ms']:.4f} ms, plain {k['plain_ms']:.4f}, torch.matmul "
+        f"{k['library_ms']:.4f}, bound {b_ms:.4f} ({by})")
+    return out
+
+
+def phase_probe(log, require) -> dict:
+    """Phase 19: scripts/torch_probe_h2d.py pallas_dot rowdot_pl (a fresh
+    process per mode), the whole process group killed past
+    PROBE_TIMEOUT_S."""
+    cmd = [sys.executable, osp.join(ROOT, "scripts", "torch_probe_h2d.py"),
+           "pallas_dot", "rowdot_pl"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=ROOT,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=PROBE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"the H2D probe ran past {PROBE_TIMEOUT_S} s")
+    for line in stdout.splitlines():
+        log(f"[probe] {line}")
+    require(proc.returncode == 0, f"the H2D probe exited {proc.returncode}: "
+            f"{stderr.strip().splitlines()[-5:]}")
+    modes = {}
+    for line in stdout.splitlines():
+        if line.startswith("{"):
+            rec = json.loads(line)
+            modes[rec["mode"]] = rec
+    require(set(modes) == {"pallas_dot", "rowdot_pl"},
+            f"probe modes {sorted(modes)}")
+    require(modes["pallas_dot"]["launches"].get("pdot", 0) >= 1,
+            f"pallas_dot did not launch K7: {modes['pallas_dot']}")
+    require(modes["rowdot_pl"]["launches"].get("rowdot", 0) >= 1,
+            f"rowdot_pl did not launch K10b: {modes['rowdot_pl']}")
+    return modes
+
+
 def main() -> None:
     try:
         import torch
@@ -292,6 +646,7 @@ def main() -> None:
             costail_fused as ct)
         from zeroshotsemanticsegmentation_tpu_torch.ops import dotpolicy
         from zeroshotsemanticsegmentation_tpu_torch.ops import pdot as pd
+        from zeroshotsemanticsegmentation_tpu_torch.ops import rowdot as rd
         from zeroshotsemanticsegmentation_tpu_torch.train import (
             TrainState, make_fcn_optimizer, make_fcn_train_step,
             make_seenmask_optimizer, make_seenmask_train_step)
@@ -1045,6 +1400,18 @@ def main() -> None:
         f"{fc6_row['plain_ms']:.3f}, torch.matmul {fc6_row['library_ms']:.3f}"
         f", bound {fc6_row['bound_ms']:.3f})")
 
+    # ---- 16. conv1_1 alone (K8) -------------------------------------------
+    c11 = phase_c11(dev, b1, log, require)
+
+    # ---- 17. the first-max pool backward (K9) -----------------------------
+    pool = phase_pool(dev, model, _kernels, log, require)
+
+    # ---- 18. the row dot (K10b) and the probe's product on K7 (K10a) -------
+    rdot = phase_rowdot(dev, rd, pd, log, require)
+
+    # ---- 19. the H2D probe's two kernel modes -------------------------------
+    probe = phase_probe(log, require)
+
     src = "zeroshotsemanticsegmentation_tpu_torch/csrc/"
     ref = "zeroshotsemanticsegmentation_tpu/ops/"
     kernels = [
@@ -1114,6 +1481,31 @@ def main() -> None:
          "shape": [fc6_row["m"], fc6_row["k"], fc6_row["n"]],
          "dtype": "bfloat16 in, float32 out",
          "shapes": pdot_rows},
+        {"name": "conv1_1_pairs", "route": "cuda",
+         "source": src + "conv1_1.cu",
+         "replaces": ref + "block1_fused.py:201",
+         "launches": c11["launches"], "max_abs_err": c11["max_abs_err"],
+         "max_abs_err_fp32": c11["max_abs_err_fp32"], "ms": c11["ms"],
+         "plain_ms": c11["plain_ms"], "bound_ms": c11["bound_ms"],
+         "bound_by": c11["bound_by"], "library_ms": c11["library_ms"],
+         "shape": c11["shape"], "dtype": "bfloat16"},
+        {"name": "pool_bwd", "route": "cuda", "source": src + "pool_bwd.cu",
+         "replaces": "scripts/experiments/pool_bwd_pallas.py:111",
+         "launches": pool["launches"], "max_abs_err": pool["max_abs_err"],
+         **{k: pool["shapes"][0][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "shape", "dtype")},
+         "shapes": pool["shapes"]},
+        {"name": "rowdot", "route": "cuda", "source": src + "rowdot.cu",
+         "replaces": "scripts/probe_h2d.py:763",
+         "launches": probe["rowdot_pl"]["launches"]["rowdot"],
+         **{k: rdot[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms",
+                                 "shape")}},
+        {"name": "pdot (probe 512x512 fp32, K10a)", "route": "cuda",
+         "source": src + "pdot.cu", "replaces": "scripts/probe_h2d.py:258",
+         "launches": probe["pallas_dot"]["launches"]["pdot"],
+         **rdot["k10a"], "dtype": "float32"},
     ]
     log(f"[times] K1 {k1_ms:.4f} ms (plain {k1_plain_ms:.3f}, bound "
         f"{k1_bound:.4f}); K2 {k2_ms:.3f} ms (plain {k2_plain_ms:.3f}, "

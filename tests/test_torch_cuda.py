@@ -19,6 +19,8 @@ from zeroshotsemanticsegmentation_tpu_torch.ops import conv7x7 as tc7
 from zeroshotsemanticsegmentation_tpu_torch.ops import costail_fused as tct
 from zeroshotsemanticsegmentation_tpu_torch.ops import dotpolicy as tdp
 from zeroshotsemanticsegmentation_tpu_torch.ops import pdot as tpd
+from zeroshotsemanticsegmentation_tpu_torch.ops import pool_bwd as tpb
+from zeroshotsemanticsegmentation_tpu_torch.ops import rowdot as trd
 from zeroshotsemanticsegmentation_tpu_torch.ops import szn_fused as tsz
 from zeroshotsemanticsegmentation_tpu_torch.ops.metrics import (
     unseen_mask_vector)
@@ -300,3 +302,67 @@ def test_dot_free_conv_matches_default(rng, cuda, name):
         tdp.set_dot_free(None)
     for a, b in zip(*grads):
         assert _rel(b, a) < 1e-5, _rel(b, a)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw", [(38, 42), (66, 34), (4, 132)])
+def test_conv1_1_kernel_matches_plain(rng, cuda, dtype, hw):
+    """K8 vs its plain version: fp32 max |err| <= 1e-5; bf16 within
+    2^-8 max(|a|, |b|) + 1e-6 (the products of bf16 values are exact in
+    fp32 and both add the taps in one order, so they agree bit for bit)."""
+    xp = _t(rng.randn(2, *hw, 3).astype(np.float32), cuda)
+    k1 = _t(rng.randn(64, 3, 3, 3).astype(np.float32) * 0.2, cuda)
+    b1 = _t(rng.randn(64).astype(np.float32) * 0.1, cuda)
+    before = _kernels.launch_counts["conv1_1_pairs"]
+    got = tb1.conv1_1_pairs(xp, k1, b1, dtype)
+    assert _kernels.launch_counts["conv1_1_pairs"] == before + 1
+    want = tb1.conv1_1_pairs_plain(xp, k1, b1, dtype)
+    assert got.shape == want.shape == (2, hw[0] - 2, (hw[1] - 2) // 2, 128)
+    assert got.dtype == dtype
+    a, b = got.float(), want.float()
+    if dtype == torch.float32:
+        assert (a - b).abs().max().item() <= 1e-5
+    else:
+        bar = 2.0 ** -8 * torch.maximum(a.abs(), b.abs()) + 1e-6
+        assert bool(((a - b).abs() <= bar).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 8, 10, 64), (1, 7, 9, 3),
+                                   (2, 9, 8, 16), (1, 6, 6, 5)])
+def test_pool_bwd_kernel_matches_plain_and_autograd(rng, cuda, dtype, shape):
+    """K9 through `ceil_max_pool_2x2` vs its plain version and vs
+    F.max_pool2d's autograd (ceil mode), exactly, with dense ties."""
+    x = _t(rng.randint(0, 3, shape).astype(np.float32), cuda).to(dtype)
+    xs = x.clone().requires_grad_()
+    y = tpb.ceil_max_pool_2x2(xs)
+    g = torch.randn_like(y)
+    before = _kernels.launch_counts["pool_bwd"]
+    (dx,) = torch.autograd.grad(y, xs, g)
+    assert _kernels.launch_counts["pool_bwd"] == before + 1
+    xl = x.permute(0, 3, 1, 2).clone().requires_grad_()
+    yl = torch.nn.functional.max_pool2d(xl, 2, 2, ceil_mode=True)
+    (dl,) = torch.autograd.grad(yl, xl, g.permute(0, 3, 1, 2))
+    assert torch.equal(y.detach(), yl.detach().permute(0, 2, 3, 1))
+    assert torch.equal(dx, dl.permute(0, 2, 3, 1))
+    if shape[1] % 2 == 0 and shape[2] % 2 == 0:
+        assert torch.equal(tpb.pool_bwd(x, y.detach(), g),
+                           tpb.pool_bwd_plain(x, y.detach(), g))
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 16, 21), (3, 5, 7, 1),
+                                   (1, 3, 5, 300), (1, 1, 33, 32)])
+def test_rowdot_kernel_matches_plain(rng, cuda, shape):
+    """K10b vs its plain version: the same ordered fp32 sum, bit for bit
+    (the phase-18 bar is rtol 1e-6, atol 1e-6); also from a storage
+    offset that is not 16-byte aligned (one float per thread)."""
+    a = _t(rng.randn(*shape).astype(np.float32), cuda)
+    b = _t(rng.randn(*shape).astype(np.float32), cuda)
+    before = _kernels.launch_counts["rowdot"]
+    got = trd.rowdot(a, b)
+    assert _kernels.launch_counts["rowdot"] == before + 1
+    assert torch.equal(got, trd.rowdot_plain(a, b))
+    flat = torch.cat([torch.zeros(1, device=cuda), a.flatten()])
+    a1 = flat[1:].view(shape)
+    assert a1.data_ptr() % 16 != 0
+    assert torch.equal(trd.rowdot(a1, b), got)

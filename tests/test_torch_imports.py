@@ -20,6 +20,10 @@ def _sources():
             if f.endswith(".py"):
                 yield osp.join(dirpath, f)
     yield osp.join(_ROOT, "chip_smoke.py")
+    scripts = osp.join(_ROOT, "scripts")
+    for f in os.listdir(scripts):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield osp.join(scripts, f)
 
 
 def _imported_roots(path):
@@ -49,6 +53,8 @@ def test_import_loads_no_jax():
         "import zeroshotsemanticsegmentation_tpu_torch.data.assets\n"
         "import zeroshotsemanticsegmentation_tpu_torch.train.steps\n"
         "import zeroshotsemanticsegmentation_tpu_torch.ops.costail_fused\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.ops.pool_bwd\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.ops.rowdot\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'zeroshotsemanticsegmentation_tpu'))\n"
         "assert not bad, bad\n")

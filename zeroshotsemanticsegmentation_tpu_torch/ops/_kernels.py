@@ -16,7 +16,9 @@ is PyTorch's current stream. Every C entry point returns
 wrapper adds one where it launches its kernel and nowhere else, so a run can
 show that a path went through the kernel. A library may hold more than one
 kernel (`block1_train`: K3 forward and K4 backward; `costail_fused`: K5 and
-K6), so the counts have keys of their own.
+K6), so the counts have keys of their own; the keys of the one-kernel
+libraries `conv1_1` (K8), `pool_bwd` (K9) and `rowdot` (K10b) are the
+wrappers' names.
 """
 
 from __future__ import annotations
@@ -36,13 +38,14 @@ _PKG_DIR = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CSRC_DIR = osp.join(_PKG_DIR, "csrc")
 BUILD_DIR = osp.join(_PKG_DIR, "_build")
 KERNELS = ("szn_fused", "block1_fused", "block1_train", "costail_fused",
-           "pdot")
+           "pdot", "conv1_1", "pool_bwd", "rowdot")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launch_counts = {name: 0 for name in (
     "szn_fused", "block1_fused", "block1_train_fwd", "block1_train_bwd",
-    "costail_fwd", "costail_bwd", "pdot")}
+    "costail_fwd", "costail_bwd", "pdot", "conv1_1_pairs", "pool_bwd",
+    "rowdot")}
 build_logs: dict[str, str] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -137,3 +140,4 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong

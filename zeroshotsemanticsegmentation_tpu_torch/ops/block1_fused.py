@@ -13,9 +13,17 @@
   launches K3 (`conv2_pool`, csrc/block1_train.cu) on the saved conv1_1
   activation and whose backward launches K4 (`conv2_pool_backward`).
 
+`conv1_1_pairs` is conv1_1 + bias + ReLU on its own, the port of the JAX
+package's `conv1_1_pairs` (K8, `csrc/conv1_1.cu`; its plain version
+`conv1_1_pairs_plain` runs on a CPU tensor). No model path calls it, as in
+the JAX package: the block-1 bench (`scripts/torch_bench_block1.py`) feeds
+it to K3.
+
 Layouts: xp (B, Hp, Wp, 3) NHWC, weights in torch's OIHW, output
 (B, (Hp-4)/2, (Wp-4)/2, 64) NHWC. Any even, positive Hp-4 and Wp-4. The
-conv1_1 activation c11 is (B, Hp-2, Wp-2, 64) NHWC in `dtype`.
+conv1_1 activation c11 is (B, Hp-2, Wp-2, 64) NHWC in `dtype`; for even Wp
+the JAX package's packed-pair layout (B, Hp-2, (Wp-2)/2, 128), lane e*64+c of
+pair q = column 2q+e, channel c, is the same memory under a view.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [_kernels.P] * 6 + [_kernels.I] * 4 + [_kernels.P]
+# K3's and K8's entry points: four pointers, four ints, the stream
 _FWD_ARGTYPES = [_kernels.P] * 4 + [_kernels.I] * 4 + [_kernels.P]
 _BWD_ARGTYPES = [_kernels.P] * 11 + [_kernels.I] * 5 + [_kernels.P]
 
@@ -234,3 +243,71 @@ def block1_op(xp, k1, b1, k2, b2, dtype=torch.bfloat16) -> torch.Tensor:
             t.requires_grad for t in (xp, k1, b1, k2, b2)):
         return block1_train(xp, k1, b1, k2, b2, dtype)
     return block1_fused(xp, k1, b1, k2, b2, dtype)
+
+
+def _check_pairs_geometry(xp: torch.Tensor) -> None:
+    if xp.dim() != 4 or xp.shape[-1] != 3:
+        raise ValueError(f"conv1_1_pairs: xp must be (B, Hp, Wp, 3), got "
+                         f"{tuple(xp.shape)}")
+    hp, wp = xp.shape[1], xp.shape[2]
+    if hp < 4 or wp < 4 or hp % 2 or wp % 2:
+        raise ValueError(f"conv1_1_pairs: Hp and Wp must be even and at "
+                         f"least 4, got {tuple(xp.shape)}")
+
+
+def _pairs(c11: torch.Tensor) -> torch.Tensor:
+    b, ho, wo, _ = c11.shape
+    return c11.view(b, ho, wo // 2, 128)
+
+
+def conv1_1_pairs_plain(xp, k1, b1, dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of K8 with the JAX kernel's rounding points: xp and k1
+    rounded to `dtype`, the 27 products summed in fp32, + b1 in fp32, ReLU,
+    one rounding to `dtype`; in the packed-pair shape. The taps are added
+    in K8's order (kh, ci, kw), so for bf16 inputs, whose products are
+    exact in fp32, the kernel and this version agree bit for bit."""
+    _check_pairs_geometry(xp)
+    x = xp.to(dtype).to(torch.float32)
+    w = k1.to(dtype).to(torch.float32)
+    b, hp, wp, _ = x.shape
+    ho, wo = hp - 2, wp - 2
+    acc = torch.zeros((b, ho, wo, 64), dtype=torch.float32, device=x.device)
+    for kh in range(3):
+        for ci in range(3):
+            for kw in range(3):
+                acc = acc + (x[:, kh:kh + ho, kw:kw + wo, ci:ci + 1]
+                             * w[:, ci, kh, kw])
+    return _pairs(torch.relu(acc + b1.to(torch.float32)).to(dtype))
+
+
+def conv1_1_pairs(xp, k1, b1, dtype=torch.bfloat16) -> torch.Tensor:
+    """conv1_1 (3 -> 64, 3x3 VALID) + b1 + ReLU in the JAX op's packed-pair
+    shape (B, Hp-2, (Wp-2)/2, 128); `.view(B, Hp-2, Wp-2, 64)` gives the
+    NHWC activation K3 reads. xp (B, Hp, Wp, 3), Hp and Wp even; k1 (64, 3,
+    3, 3) OIHW; b1 (64,). K8 on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if not xp.is_cuda:
+        return conv1_1_pairs_plain(xp, k1, b1, dtype)
+    _check_pairs_geometry(xp)
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"conv1_1_pairs: dtype {dtype} not supported")
+    dev = xp.device
+    for t, shape in ((k1, (64, 3, 3, 3)), (b1, (64,))):
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"conv1_1_pairs: weight of shape "
+                             f"{tuple(t.shape)} on {t.device}, expected "
+                             f"{shape} on {dev}")
+    x = xp.to(dtype).contiguous()
+    b, hp, wp, _ = x.shape
+    k1h = k1.to(dtype).to(torch.float32).permute(2, 3, 1, 0).contiguous()
+    b1f = b1.to(torch.float32).contiguous()
+    out = torch.empty((b, hp - 2, wp - 2, 64), dtype=dtype, device=dev)
+    if b == 0:
+        return _pairs(out)
+    fn = _kernels.function("conv1_1", "conv1_1_forward", _FWD_ARGTYPES)
+    p = _kernels.ptr
+    rc = fn(p(x), p(k1h), p(b1f), p(out), b, hp, wp, _DTYPE_CODES[dtype],
+            _kernels.P(_kernels.stream_handle(dev)))
+    _kernels.check("conv1_1", rc)
+    _kernels.launch_counts["conv1_1_pairs"] += 1
+    return _pairs(out)
