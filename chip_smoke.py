@@ -10,6 +10,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
    TF32 off for the parity phases;
 2. build: compiles the CUDA kernels from zeroshotsemanticsegmentation_tpu_torch
    /csrc with nvcc (sm_90a) and prints the build time and ptxas's summary;
+   per block1_train kernel its registers, static shared memory, spills and,
+   where cuobjdump exists, its HGMMA count (each bf16 wgmma kernel > 0);
 3. the SZN-labels kernel vs its plain version at the serving shapes (B=8,
    K=21, C=20, 17x17 heads, 512x512) and at the edge cases of the JAX
    package's tests (zero-norm pixels, a zeroed embedding row, all-negative
@@ -28,7 +30,9 @@ Phases, each of which passes or ends the script with a non-zero exit:
    versions on c11 from (2, 522, 522, 3), from the odd 375x500 geometry
    (386x510) and from the train step's (24, 522, 522, 3), fp32 with TF32
    off and bf16; at B=24 in fp32 both K4 and its plain version also vs an
-   fp64 autograd reference;
+   fp64 autograd reference; in bf16 (the wgmma kernels) the route vs K3
+   (with g = 1 one 1 in each window where K3's output is > 0, zeros where
+   it is 0) and two K4 calls bit-equal;
 8. the fused cosine tail (K5 forward, K6 backward) vs its plain versions at
    B=4 and at the train step's B=24, 512x512, C=20, K=21 with ignore
    labels, an all-ignore sample, a zeroed embedding row and zero-norm
@@ -41,11 +45,15 @@ Phases, each of which passes or ends the script with a non-zero exit:
    embeddings, the last step with host syncs turned into errors; the
    launch counts of K3-K6 (and none of K2); then one fp32
    step at B=2 through the kernels vs the same step through the plain
-   versions;
+   versions; then the bf16 bar: the same B=2 step in bf16 through the
+   kernels and in bf16 with K3/K4 through their plain versions, each
+   parameter's gradient vs the fp32 step's, the kernels' error at most 2x
+   the plain versions';
 10. times with CUDA events: the train step at B=24, 512x512, bf16 (the JAX
    package's bench_train configuration), its peak memory, and K3-K6 at the
    step's shapes beside their plain versions, bounds and library calls
-   (K5/K6 also at C=300, K=33);
+   (K5/K6 also at C=300, K=33), K4's route, dK2 + reduction and d(c11)
+   steps each alone;
 11. the matmul kernel (K7) vs its plain version at the four products the
    dot-free model runs at B=24 (bf16 in, fp32 out), fp32 at the fc7 shape
    and at the JAX tests' edge shapes vs an fp64 product; its times;
@@ -97,6 +105,8 @@ import importlib.util
 import json
 import os
 import os.path as osp
+import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -296,6 +306,47 @@ def phase_eval(dev, model, train_batch, embed, uv, k_cls, log, require,
             out[f"{name}{suffix}_ms_per_batch"] = time_ms(
                 lambda: fn(mbf, ebatch), iters=3)
     return out
+
+
+def kernel_build_stats(kernels, lib: str) -> dict:
+    """Per kernel function of library `lib`: registers, static shared
+    memory and spill bytes from ptxas's -v summary, and, where cuobjdump is
+    on the machine, the count of HGMMA (wgmma) instructions in its SASS."""
+    stats, fn = {}, None
+    for line in kernels.build_logs.get(lib, "").splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            stats[fn] = {}
+        elif fn and "spill stores" in line:
+            stats[fn]["spill_bytes"] = sum(
+                int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif fn and "registers" in line:
+            words = line.replace(",", "").split()
+            stats[fn]["registers"] = int(words[words.index("registers") - 1])
+            stats[fn]["static_smem"] = (
+                int(words[words.index("smem") - 2]) if "smem" in words else 0)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if osp.exists(tool):
+        sass = subprocess.run([tool, "-sass", kernels._lib_path(lib)],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                stats.setdefault(fn, {})["hgmma"] = 0
+            elif fn and "HGMMA" in line:
+                stats[fn]["hgmma"] += 1
+    short = {}
+    for mangled, st in stats.items():
+        for name in ("conv2_pool_fwd_wgmma", "conv2_pool_route_wgmma",
+                     "conv2_wgrad_wgmma", "conv2_dgrad_wgmma",
+                     "conv2_pool_fwd", "conv2_pool_route", "conv2_wgrad",
+                     "conv2_dgrad", "wgrad_reduce"):
+            if f"{len(name)}{name}" in mangled:
+                short.setdefault(name, {}).update(st)
+                break
+    return short
 
 
 def load_script(name: str):
@@ -692,6 +743,13 @@ def main() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    b1_build = kernel_build_stats(_kernels, "block1_train")
+    for fn, st in b1_build.items():
+        log(f"[build] block1_train {fn}: {st}")
+    for fn in ("conv2_pool_fwd_wgmma", "conv2_pool_route_wgmma",
+               "conv2_wgrad_wgmma", "conv2_dgrad_wgmma"):
+        require(b1_build.get(fn, {}).get("hgmma", 1) > 0,
+                f"{fn} has no HGMMA instruction: {b1_build.get(fn)}")
 
     @contextlib.contextmanager
     def plain_versions():
@@ -701,15 +759,21 @@ def main() -> None:
             yield
 
     @contextlib.contextmanager
+    def plain_block1_training():
+        """Routes the training form of block 1 through K3/K4's plain
+        versions."""
+        with mock.patch.object(b1, "conv2_pool", b1.conv2_pool_plain), \
+                mock.patch.object(b1, "conv2_pool_backward",
+                                  b1.conv2_pool_plain_backward):
+            yield
+
+    @contextlib.contextmanager
     def plain_training():
         """Routes the train step through K3-K6's plain versions: the
         training form of block 1 with plain conv2_pool, and the fused
         tail's plain version."""
-        with mock.patch.object(b1, "conv2_pool", b1.conv2_pool_plain), \
-                mock.patch.object(b1, "conv2_pool_backward",
-                                  b1.conv2_pool_plain_backward), \
-                mock.patch.object(train_steps, "fused_cos_tail",
-                                  ct.cos_tail_plain):
+        with plain_block1_training(), mock.patch.object(
+                train_steps, "fused_cos_tail", ct.cos_tail_plain):
             yield
 
     def flip_rate(a, b) -> float:
@@ -943,6 +1007,7 @@ def main() -> None:
     # the fp32 kernel-vs-plain reading there is cuDNN's rounding.
     k4_bf16_bar = 2.0 ** -8
     k3_err = k4_err = None
+    k4_checks = []
     for shape in ((2, 522, 522, 3), (2, 375 + 11, 500 + 10, 3),
                   (TRAIN_BATCH, H + 10, W + 10, 3)):
         xp = torch.randn(*shape, device=dev)
@@ -979,6 +1044,32 @@ def main() -> None:
                 require(a.shape == b.shape and a.dtype == b.dtype,
                         f"K4 output {tuple(a.shape)} {a.dtype} vs "
                         f"{tuple(b.shape)} {b.dtype}")
+            if dtype == torch.bfloat16:
+                # the route recomputes K3's pre-activations bit for bit:
+                # with g = 1 each window of dz holds exactly one 1 where
+                # K3's output is > 0 and only zeros where it is 0
+                bufs = b1.k4_buffers(c11, k2t, b2f, torch.ones_like(got))
+                b1.k4_launch(bufs, b1.K4_ROUTE)
+                n_, hh, ww = got.shape[:3]
+                dzw = bufs["dz"].view(n_, hh, 2, ww, 2, 64)
+                pos = got > 0
+                route_ok = (torch.equal((dzw == 1).sum((2, 4)), pos.long())
+                            and torch.equal(dzw.float().sum((2, 4)),
+                                            pos.float()))
+                del bufs, dzw
+                again = b1.conv2_pool_backward(c11, k2t, b2f, g)
+                det_ok = all(torch.equal(a, b) for a, b in zip(dgot, again))
+                del again
+                log(f"[K4] {tuple(c11.shape)} bf16: route agrees with K3 "
+                    f"({pos.float().mean().item():.3f} of the windows > 0): "
+                    f"{route_ok}; two calls bit-equal: {det_ok}")
+                require(route_ok, f"K4's route disagrees with K3 at "
+                        f"{tuple(c11.shape)}")
+                require(det_ok, f"K4 is not deterministic at "
+                        f"{tuple(c11.shape)}")
+                k4_checks.append({"shape": list(c11.shape),
+                                  "route_agrees": route_ok,
+                                  "bit_equal": det_ok})
             if dtype == torch.float32 and shape[0] == TRAIN_BATCH:
                 del got, want
                 d64 = conv2_pool_grads64(c11, k2t, b2f, g)
@@ -1112,17 +1203,23 @@ def main() -> None:
 
     # one fp32 step at B=2 through the kernels and through the plain
     # versions, same weights and dropout masks
-    def fp32_step(plain: bool):
-        m = train_model(torch.float32, seed=1)
+    def b2_step(dtype, routing):
+        """One B=2 step from seed-1 weights, batch and dropout masks under
+        the context `routing`: (aux, fp32 gradients)."""
+        m = train_model(dtype, seed=1)
         st = TrainState.create(m, make_fcn_optimizer(m, optim="adam",
                                                      lr=1e-5))
         gen = torch.Generator(device=dev).manual_seed(1)
-        with plain_training() if plain else contextlib.nullcontext():
+        with routing:
             _, aux = step(st, train_batch(2, 1), gen)
-        grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()
-                 if p.grad is not None}
+        grads = {n: p.grad.detach().float().clone()
+                 for n, p in m.named_parameters() if p.grad is not None}
         del m, st
         return aux, grads
+
+    def fp32_step(plain: bool):
+        return b2_step(torch.float32, plain_training() if plain
+                       else contextlib.nullcontext())
 
     aux_k, grads_k = fp32_step(False)
     aux_p, grads_p = fp32_step(True)
@@ -1148,7 +1245,25 @@ def main() -> None:
             "fp32 step hist flips")
     require(grad_rels[worst] < grad_bar,
             f"fp32 step gradient {worst} rel {grad_rels[worst]}")
-    del grads_k, grads_p
+
+    # the bf16 end-to-end bar: the same B=2 step in bf16 through the
+    # kernels and in bf16 with K3/K4 through their plain versions, each
+    # parameter's gradient against the fp32 step's (TF32 off); the kernels
+    # may be at most 2x as far from fp32 as the plain versions, parameter
+    # by parameter
+    _, grads_bk = b2_step(torch.bfloat16, contextlib.nullcontext())
+    _, grads_bp = b2_step(torch.bfloat16, plain_block1_training())
+    torch.cuda.synchronize()
+    require(set(grads_bk) == set(grads_k) == set(grads_bp),
+            "bf16 gradient sets differ")
+    bf16_bar = {n: {"kernels": rel(grads_bk[n], grads_k[n]),
+                    "plain": rel(grads_bp[n], grads_k[n])} for n in grads_k}
+    log(json.dumps({"bf16_step_vs_fp32_grad_rel": bf16_bar}))
+    bar_misses = [n for n, r in bf16_bar.items()
+                  if not r["kernels"] <= 2 * r["plain"]]
+    require(not bar_misses, f"bf16 kernel gradients more than 2x the plain "
+            f"versions' error vs fp32: {bar_misses}")
+    del grads_k, grads_p, grads_bk, grads_bp
 
     # ---- 10. training times ---------------------------------------------
     torch.cuda.reset_peak_memory_stats()
@@ -1171,11 +1286,20 @@ def main() -> None:
     k2t, b2f = wts[2].to(bf), wts[3]
     g = torch.randn(TRAIN_BATCH, H // 2 + 3, W // 2 + 3, 64, device=dev,
                     dtype=bf)
-    k3_ms = time_ms(lambda: b1.conv2_pool(c11, k2t, b2f), iters=5)
+    k3_ms = time_ms(lambda: b1.conv2_pool(c11, k2t, b2f), iters=20)
     k3_plain_ms = time_ms(lambda: b1.conv2_pool_plain(c11, k2t, b2f),
                           iters=3)
     k4_ms = time_ms(lambda: b1.conv2_pool_backward(c11, k2t, b2f, g),
-                    iters=3)
+                    iters=10)
+    # K4's steps alone, on the scratch of one call (the route first fills
+    # dz): the route, dK2/db2 with the fp64 reduction, d(c11)
+    k4b = b1.k4_buffers(c11, k2t, b2f, g)
+    k4_parts = {name: time_ms(lambda p=p: b1.k4_launch(k4b, p), iters=10)
+                for name, p in (("route", b1.K4_ROUTE),
+                                ("wgrad_reduce", b1.K4_WGRAD),
+                                ("dgrad", b1.K4_DGRAD))}
+    k4_chunks = k4b["n_chunks"]
+    del k4b
     k4_plain_ms = time_ms(
         lambda: b1.conv2_pool_plain_backward(c11, k2t, b2f, g), iters=2)
     # library yardsticks: the bf16 cuDNN conv1_2 + bias + ReLU + max-pool
@@ -1249,9 +1373,12 @@ def main() -> None:
     # the plain versions' per-sample autograd graphs at C=300 would hold
     # ~40 GB at B=24: they are timed at B=8
     tail300 = tail_times(ctx300, 8)
-    log(f"[times] K3 {k3_ms:.3f} ms (plain {k3_plain_ms:.3f}, cuDNN "
-        f"{k3_lib_ms:.3f}, bound {k3_bound:.3f}); K4 {k4_ms:.3f} ms (plain "
-        f"{k4_plain_ms:.3f}, cuDNN {k4_lib_ms:.3f}, bound {k4_bound:.3f})")
+    log(f"[times] K3 {k3_ms:.4f} ms (plain {k3_plain_ms:.3f}, cuDNN "
+        f"{k3_lib_ms:.4f}, bound {k3_bound:.3f}); K4 {k4_ms:.4f} ms (plain "
+        f"{k4_plain_ms:.3f}, cuDNN {k4_lib_ms:.4f}, bound {k4_bound:.3f}); "
+        f"K4's steps " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                   k4_parts.items())
+        + f" ms ({k4_chunks} dK2 chunks)")
 
     # ---- 11. K7 (matmul) vs plain -----------------------------------------
     pdot_rows = phase_pdot(dev, pd, log, require)
@@ -1436,14 +1563,27 @@ def main() -> None:
          "launches": tlaunches["block1_train_fwd"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": k3_lib_ms,
-         "shape": [TRAIN_BATCH, hc, hc, 64], "dtype": "bfloat16"},
+         "shape": [TRAIN_BATCH, hc, hc, 64], "dtype": "bfloat16",
+         "design": "conv2_pool_fwd_wgmma: persistent wgmma m64n64k16 "
+                   "implicit GEMM (csrc/conv3x3_wgmma.cuh), pool epilogue; "
+                   "fp32 keeps the CUDA-core conv2_pool_fwd",
+         "build": {k: v for k, v in b1_build.items()
+                   if k == "conv2_pool_fwd_wgmma"}},
         {"name": "block1_train_backward", "route": "cuda",
          "source": src + "block1_train.cu",
          "replaces": ref + "block1_fused.py:676",
          "launches": tlaunches["block1_train_bwd"], "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": k4_lib_ms,
-         "shape": [TRAIN_BATCH, hc, hc, 64], "dtype": "bfloat16"},
+         "shape": [TRAIN_BATCH, hc, hc, 64], "dtype": "bfloat16",
+         "parts_ms": k4_parts, "wgrad_chunks": k4_chunks,
+         "checks": k4_checks, "bf16_step_bar": "kernels <= 2x plain",
+         "design": "route and dgrad on K3's wgmma mainloop, "
+                   "conv2_wgrad_wgmma (wgmma, MN-major c11 taps) + ordered "
+                   "fp64 reduce; fp32 keeps the CUDA-core kernels",
+         "build": {k: v for k, v in b1_build.items()
+                   if k in ("conv2_pool_route_wgmma", "conv2_wgrad_wgmma",
+                            "conv2_dgrad_wgmma", "wgrad_reduce")}},
         {"name": "costail_forward", "route": "cuda",
          "source": src + "costail_fused.cu",
          "replaces": ref + "costail_fused.py:108",

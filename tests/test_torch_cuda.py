@@ -135,6 +135,57 @@ def test_conv2_pool_backward_matches_plain(rng, cuda, hw):
         assert _rel(a, b) < 1e-4, (name, _rel(a, b))
 
 
+@pytest.mark.parametrize("b,hc,wc", [(1, 34, 34), (3, 34, 34),
+                                     (1, 386, 510), (1, 522, 522),
+                                     (1, 530, 530), (3, 66, 130)])
+def test_conv2_pool_wgmma_matches_plain(rng, cuda, b, hc, wc):
+    """bf16 K3 and K4 (the wgmma kernels) vs their plain versions at ragged
+    tile edges, at the bars of chip_smoke.py phase 7: K3 within 2 bf16 ULPs
+    at the output's scale, every K4 output at relative norm < 2^-8."""
+    c11 = _t(np.maximum(rng.randn(b, hc, wc, 64), 0).astype(np.float32),
+             cuda).to(torch.bfloat16)
+    _, _, k2, b2 = _b1_weights(rng, cuda)
+    k2 = k2.to(torch.bfloat16)
+    got = tb1.conv2_pool(c11, k2, b2)
+    want = tb1.conv2_pool_plain(c11, k2, b2)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2 * want.float().abs().max().item() * 2.0 ** -8, err
+    g = torch.randn_like(want)
+    dgot = tb1.conv2_pool_backward(c11, k2, b2, g)
+    dwant = tb1.conv2_pool_plain_backward(c11, k2, b2, g)
+    for name, a, w in zip(("dc11", "dk2", "db2"), dgot, dwant):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        assert _rel(a, w) < 2.0 ** -8, (name, _rel(a, w))
+
+
+@pytest.mark.parametrize("b,hc,wc", [(2, 34, 34), (1, 386, 510)])
+def test_conv2_pool_wgmma_route_and_determinism(rng, cuda, b, hc, wc):
+    """With g = 1 each 2x2 window of K4's dz holds exactly one 1 where
+    K3's pooled output is > 0 and only zeros where it is 0 (the route
+    recomputes K3's pre-activations bit for bit); two K4 calls give
+    bit-equal dK2, db2 and d(c11). The kernel's dK2 chunk count is the
+    Python mirror's."""
+    c11 = _t(rng.randn(b, hc, wc, 64).astype(np.float32), cuda).relu().to(
+        torch.bfloat16)
+    _, _, k2, b2 = _b1_weights(rng, cuda)
+    k2 = k2.to(torch.bfloat16)
+    pooled = tb1.conv2_pool(c11, k2, b2)
+    bufs = tb1.k4_buffers(c11, k2, b2, torch.ones_like(pooled))
+    assert bufs["n_chunks"] == tb1.wgrad_chunks(b, hc, wc, torch.bfloat16)
+    tb1.k4_launch(bufs, tb1.K4_ROUTE)
+    dz = bufs["dz"].float()
+    windows = dz.view(b, hc // 2 - 1, 2, wc // 2 - 1, 2, 64).sum((2, 4))
+    ones = (dz == 1).view(b, hc // 2 - 1, 2, wc // 2 - 1, 2, 64).sum((2, 4))
+    assert torch.equal(windows, (pooled > 0).float())
+    assert torch.equal(ones, (pooled > 0).long())
+    g = torch.randn_like(pooled)
+    first = tb1.conv2_pool_backward(c11, k2, b2, g)
+    second = tb1.conv2_pool_backward(c11, k2, b2, g)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
 def test_block1_op_under_grad_runs_k3_k4(rng, cuda):
     """block1_op under grad on the card launches K3 forward and K4 backward
     and not K2; its gradients equal autograd of the plain version."""

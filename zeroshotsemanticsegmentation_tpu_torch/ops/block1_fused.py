@@ -11,7 +11,11 @@
   `block1_train`: conv1_1 + bias + ReLU as ordinary torch ops (the JAX
   package leaves this conv to XLA), then `Conv2Pool`, whose forward
   launches K3 (`conv2_pool`, csrc/block1_train.cu) on the saved conv1_1
-  activation and whose backward launches K4 (`conv2_pool_backward`).
+  activation and whose backward launches K4 (`conv2_pool_backward`). In
+  bf16 both run on the tensor cores (`csrc/conv3x3_wgmma.cuh`): the host
+  packs k2 into the mainloop's shared-memory image (`pack_conv_weights`),
+  and `conv_tile_plan` and `wgrad_chunks` mirror the kernels' tiling and
+  dK2 chunking for the CPU tests. fp32 runs the CUDA-core kernels.
 
 `conv1_1_pairs` is conv1_1 + bias + ReLU on its own, the port of the JAX
 package's `conv1_1_pairs` (K8, `csrc/conv1_1.cu`; its plain version
@@ -37,7 +41,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [_kernels.P] * 6 + [_kernels.I] * 4 + [_kernels.P]
 # K3's and K8's entry points: four pointers, four ints, the stream
 _FWD_ARGTYPES = [_kernels.P] * 4 + [_kernels.I] * 4 + [_kernels.P]
-_BWD_ARGTYPES = [_kernels.P] * 11 + [_kernels.I] * 5 + [_kernels.P]
+_BWD_ARGTYPES = [_kernels.P] * 11 + [_kernels.I] * 6 + [_kernels.P]
 
 
 def _check_geometry(xp: torch.Tensor) -> None:
@@ -145,14 +149,89 @@ def _check_train_args(c11, k2, b2) -> None:
                              f"{c11.device}")
 
 
+# ---- the bf16 kernels' plan (csrc/conv3x3_wgmma.cuh, csrc/block1_train.cu)
+
+WGMMA_WINDOWS = 8        # a conv tile is 8x8 2x2 windows: 16x16 pixels
+WGRAD_SEG = 64           # conv2_wgrad_wgmma: pixels of one row per step
+WGRAD_CHUNK_SEGS = 64    # steps per block
+WGRAD_CHUNK_PIX = 4096   # fp32 conv2_wgrad: pixels per block
+
+
+def conv_b_matrices(k2: torch.Tensor, flip: bool = False) -> torch.Tensor:
+    """The GEMM B operand of each tap, (9, K, N) [tap][k][n], from OIHW
+    k2: the forward's B[kh*3+kw][ci][co] = k2[co, ci, kh, kw] (HWIO); with
+    `flip`, d(c11)'s B[th*3+tw][co][ci] = k2[co, ci, 2-th, 2-tw] (dz
+    channels in, c11 channels out)."""
+    if flip:
+        return k2.flip(2, 3).permute(2, 3, 0, 1).reshape(9, 64, 64)
+    return k2.permute(2, 3, 1, 0).reshape(9, 64, 64)
+
+
+def pack_conv_weights(b: torch.Tensor) -> torch.Tensor:
+    """(9, 64, 64) [tap][k][n] -> the bf16 shared-memory image the wgmma
+    mainloop reads as B: 36 steps (tap, 16-channel k step) of 2048 B, each
+    the no-swizzle K-major layout of 8x2 core matrices (n-group nc, k-half
+    kc) at (2 nc + kc) * 128 B, a core matrix 8 n-rows of 8 k values.
+    Shape (9, 4, 8, 2, 8, 8): [tap][ks][nc][kc][n % 8][k % 8]."""
+    return (b.to(torch.bfloat16).reshape(9, 4, 2, 8, 8, 8)
+            .permute(0, 1, 4, 2, 5, 3).contiguous())
+
+
+def conv_tile_plan(batch: int, hc: int, wc: int) -> dict:
+    """The bf16 kernels' tiling of a c11 of (batch, hc, wc, 64):
+    `pool`, the (batch, tiles_y, tiles_x) grid of 8x8-window tiles that
+    K3 and K4's route walk (tile (ty, tx) owns pooled pixels 8 ty .., 8 tx
+    ..); `dgrad`, the grid of 16x16-pixel tiles of d(c11); both walked in
+    (b, ty, tx) order by persistent blocks."""
+    ph, pw = (hc - 2) // 2, (wc - 2) // 2
+    w, t = WGMMA_WINDOWS, 2 * WGMMA_WINDOWS
+    return {"pool": (batch, -(-ph // w), -(-pw // w)),
+            "dgrad": (batch, -(-hc // t), -(-wc // t))}
+
+
+def tile_row_pixels() -> torch.Tensor:
+    """(2, 2, 4, 2, 8, 2): the (y, x) within its 16x16 tile of the output
+    pixel that the mainloop's accumulator row [wg][dy][warp][h][r] (row 16
+    warp + 8 h + r of warpgroup wg's m64 tile dy) computes:
+    (2 (4 wg + warp) + dy, 2 r + h)."""
+    wg, dy, warp, h, r = torch.meshgrid(
+        *(torch.arange(n) for n in (2, 2, 4, 2, 8)), indexing="ij")
+    return torch.stack((2 * (4 * wg + warp) + dy, 2 * r + h), -1)
+
+
+def wgrad_chunks(batch: int, hc: int, wc: int, dtype) -> int:
+    """The dK2 chunk count of `block1_train_wgrad_chunks`, 0 for a shape
+    the backward refuses: bf16 blocks take WGRAD_CHUNK_SEGS row segments of
+    WGRAD_SEG pixels, fp32 blocks WGRAD_CHUNK_PIX pixels; either way a
+    chunk has a fixed length and the count grows with the pixels."""
+    ho, wo = hc - 2, wc - 2
+    if (not 0 < batch <= 65535 or ho <= 0 or wo <= 0 or ho % 2 or wo % 2
+            or batch * ho * wo * 64 >= 2 ** 31):
+        return 0
+    if dtype == torch.bfloat16:
+        segs = batch * ho * -(-wo // WGRAD_SEG)
+        return -(-segs // WGRAD_CHUNK_SEGS)
+    return -(-(batch * ho * wo) // WGRAD_CHUNK_PIX)
+
+
+def _train_weights(k2, dtype, flip=False) -> torch.Tensor:
+    """k2 as the kernels take it: the packed wgmma image for bf16, HWIO
+    fp32 values rounded to `dtype` otherwise."""
+    k = k2.to(dtype)
+    if dtype == torch.bfloat16:
+        return pack_conv_weights(conv_b_matrices(k, flip))
+    return conv_b_matrices(k.to(torch.float32), flip).contiguous()
+
+
 def conv2_pool(c11, k2, b2) -> torch.Tensor:
-    """K3 wrapper: launches `block1_train_forward` (CUDA tensors only).
-    c11 (B, Hc, Wc, 64) in bf16 or fp32, k2 OIHW, b2 (64,) -> (B, (Hc-2)/2,
-    (Wc-2)/2, 64) in c11's dtype."""
+    """K3 wrapper: launches `block1_train_forward` (CUDA tensors only);
+    bf16 on the tensor cores (`conv2_pool_fwd_wgmma`), fp32 on the CUDA
+    cores. c11 (B, Hc, Wc, 64) in bf16 or fp32, k2 OIHW, b2 (64,) ->
+    (B, (Hc-2)/2, (Wc-2)/2, 64) in c11's dtype."""
     _check_train_args(c11, k2, b2)
     c11 = c11.contiguous()
     b, hc, wc, _ = c11.shape
-    k2h = k2.to(c11.dtype).to(torch.float32).permute(2, 3, 1, 0).contiguous()
+    k2h = _train_weights(k2, c11.dtype)
     b2f = b2.to(torch.float32).contiguous()
     out = torch.empty((b, (hc - 2) // 2, (wc - 2) // 2, 64), dtype=c11.dtype,
                       device=c11.device)
@@ -167,11 +246,13 @@ def conv2_pool(c11, k2, b2) -> torch.Tensor:
     return out
 
 
-def conv2_pool_backward(c11, k2, b2, g):
-    """K4 wrapper: launches `block1_train_backward` (CUDA tensors only):
-    the route, dK2/db2 and d(c11) kernels. Returns (d c11 in c11's dtype,
-    d k2 OIHW in k2's dtype, d b2 in b2's dtype); dK2 and db2 accumulate in
-    fp32."""
+# K4's steps, as `block1_train_backward` selects them
+K4_ROUTE, K4_WGRAD, K4_DGRAD, K4_ALL = 1, 2, 4, 7
+
+
+def k4_buffers(c11, k2, b2, g) -> dict:
+    """K4's inputs as the kernels take them, its scratch and its outputs,
+    for `k4_launch`."""
     _check_train_args(c11, k2, b2)
     dtype = c11.dtype
     c11 = c11.contiguous()
@@ -180,32 +261,49 @@ def conv2_pool_backward(c11, k2, b2, g):
     if tuple(g.shape) != (b, ho // 2, wo // 2, 64):
         raise ValueError(f"conv2_pool_backward: g {tuple(g.shape)} does not "
                          f"match c11 {tuple(c11.shape)}")
-    g = g.to(dtype).contiguous()
     dev = c11.device
-    k2f = k2.to(dtype).to(torch.float32)
-    k2h = k2f.permute(2, 3, 1, 0).contiguous()
-    kflip = k2f.flip(2, 3).permute(2, 3, 0, 1).contiguous()
-    b2f = b2.to(torch.float32).contiguous()
     # the dK2 reduction's chunk count: the kernel fixes the chunk length
     n_chunks = _kernels.function("block1_train", "block1_train_wgrad_chunks",
-                                 [_kernels.I] * 3)(b, hc, wc)
+                                 [_kernels.I] * 4)(
+        b, hc, wc, _DTYPE_CODES[dtype])
     f32 = dict(dtype=torch.float32, device=dev)
-    dz = torch.empty((b, ho, wo, 64), dtype=dtype, device=dev)
-    partial = torch.empty((n_chunks, 9, 64, 64), **f32)
-    dbp = torch.empty((n_chunks, 64), **f32)
-    dk = torch.empty((9, 64, 64), **f32)
-    db = torch.empty((64,), **f32)
-    dc11 = torch.empty_like(c11)
+    return {"c11": c11, "k2": _train_weights(k2, dtype),
+            "kflip": _train_weights(k2, dtype, flip=True),
+            "b2": b2.to(torch.float32).contiguous(),
+            "g": g.to(dtype).contiguous(),
+            "dz": torch.empty((b, ho, wo, 64), dtype=dtype, device=dev),
+            "partial": torch.empty((n_chunks, 9, 64, 64), **f32),
+            "dbp": torch.empty((n_chunks, 64), **f32),
+            "dk": torch.empty((9, 64, 64), **f32),
+            "db": torch.empty((64,), **f32),
+            "dc11": torch.empty_like(c11), "n_chunks": n_chunks}
+
+
+def k4_launch(bufs: dict, parts: int = K4_ALL) -> None:
+    """Launches the K4 steps `parts` (K4_ROUTE: dz; K4_WGRAD: dK2, db2;
+    K4_DGRAD: d(c11)) on `k4_buffers`' tensors."""
+    c11 = bufs["c11"]
+    b, hc, wc, _ = c11.shape
     fn = _kernels.function("block1_train", "block1_train_backward",
                            _BWD_ARGTYPES)
     p = _kernels.ptr
-    rc = fn(p(c11), p(k2h), p(kflip), p(b2f), p(g), p(dz), p(partial),
-            p(dbp), p(dk), p(db), p(dc11), b, hc, wc, n_chunks,
-            _DTYPE_CODES[dtype], _kernels.P(_kernels.stream_handle(dev)))
+    rc = fn(*(p(bufs[k]) for k in ("c11", "k2", "kflip", "b2", "g", "dz",
+                                   "partial", "dbp", "dk", "db", "dc11")),
+            b, hc, wc, bufs["n_chunks"], _DTYPE_CODES[c11.dtype], parts,
+            _kernels.P(_kernels.stream_handle(c11.device)))
     _kernels.check("block1_train", rc)
+
+
+def conv2_pool_backward(c11, k2, b2, g):
+    """K4 wrapper: launches `block1_train_backward` (CUDA tensors only):
+    the route, dK2/db2 and d(c11) kernels, on the tensor cores for bf16.
+    Returns (d c11 in c11's dtype, d k2 OIHW in k2's dtype, d b2 in b2's
+    dtype); dK2 and db2 accumulate in fp32."""
+    bufs = k4_buffers(c11, k2, b2, g)
+    k4_launch(bufs)
     _kernels.launch_counts["block1_train_bwd"] += 1
-    dk2 = dk.view(3, 3, 64, 64).permute(2, 3, 0, 1).to(k2.dtype)
-    return dc11, dk2.contiguous(), db.to(b2.dtype)
+    dk2 = bufs["dk"].view(3, 3, 64, 64).permute(2, 3, 0, 1).to(k2.dtype)
+    return bufs["dc11"], dk2.contiguous(), bufs["db"].to(b2.dtype)
 
 
 class Conv2Pool(torch.autograd.Function):
