@@ -10,20 +10,27 @@ Phases, each of which passes or ends the script with a non-zero exit:
    TF32 off for the parity phases;
 2. build: compiles the CUDA kernels from zeroshotsemanticsegmentation_tpu_torch
    /csrc with nvcc (sm_90a) and prints the build time and ptxas's summary;
-   per block1_train kernel its registers, static shared memory, spills and,
-   where cuobjdump exists, its HGMMA count (each bf16 wgmma kernel > 0);
+   per block1_train, block1_fused and pdot kernel its registers, static
+   shared memory, spills and, where cuobjdump exists, its HGMMA count (each
+   bf16 wgmma kernel > 0: K3/K4's four, K2's block1_fused_wgmma, K7's
+   pdot_tma and pdot_narrow instances);
 3. the SZN-labels kernel vs its plain version at the serving shapes (B=8,
    K=21, C=20, 17x17 heads, 512x512) and at the edge cases of the JAX
    package's tests (zero-norm pixels, a zeroed embedding row, all-negative
    similarities);
-4. the fused block-1 kernel vs its plain version at (2, 522, 522, 3) in fp32
-   and bf16, and at the odd 375x500 geometry of the pruned path;
+4. the fused block-1 kernel (K2; bf16 on wgmma) vs its plain version at
+   (2, 522, 522, 3) in fp32 and bf16, at the odd 375x500 geometry of the
+   pruned path, and in bf16 at the serving batch (64, 522, 522, 3), where
+   two calls must be bit-equal; fp32 also vs an fp64 plain version;
 5. the slice: a full-width FCN-32s (20-dim embeddings, seeded random
    weights) served through make_szn_predictor with the bundled pascal
    embeddings and unseen classes [1, 13]; a few requests (float32 512x512,
    uint8, 500x375), both kernels' launch counts, labels vs the same predictor
    through the plain versions (fp32), vs the unfused full-resolution NNE
-   reference, and the trained-upscore route;
+   reference, and the trained-upscore route; the serving bf16 bar
+   (scripts/torch_serving_bar.py): bf16 labels through the kernels at most
+   2x as far (flip rate) from the fp32 labels as bf16 labels with block 1
+   through its plain version;
 6. times with CUDA events: the predictor at B=64, 512x512, bf16, and each
    kernel at its serving shape beside its plain version and its bound;
 7. the block-1 training kernels (K3 forward, K4 backward) vs their plain
@@ -55,21 +62,26 @@ Phases, each of which passes or ends the script with a non-zero exit:
    (K5/K6 also at C=300, K=33), K4's route, dK2 + reduction and d(c11)
    steps each alone;
 11. the matmul kernel (K7) vs its plain version at the four products the
-   dot-free model runs at B=24 (bf16 in, fp32 out), fp32 at the fc7 shape
-   and at the JAX tests' edge shapes vs an fp64 product; its times;
+   dot-free model runs at B=24 (bf16 in, fp32 out) and at ragged tma
+   shapes, fp32 at the fc7 shape and at the JAX tests' edge shapes vs an
+   fp64 product; each product's variant (tma, narrow, wmma, fp32) logged
+   with its own launch count, two calls bit-equal; its times (also by
+   device time alone, as torch.matmul's);
 12. stage 1 under the dot-free mode: three B=24 steps from phase 9's
-   weights, batch and generator seed; K7 exactly 3 launches per step, K3-K6
-   one each; one fp32 step at B=2 with the mode on vs off (K7 vs cuBLAS /
-   cuDNN) at phase 9's gradient bar;
+   weights, batch and generator seed; K7 exactly 3 launches per step (two
+   tma, one narrow), K3-K6 one each; one fp32 step at B=2 with the mode on
+   vs off (K7 vs cuBLAS / cuDNN) at phase 9's gradient bar;
 13. stage 2: make_seenmask_train_step with make_seenmask_optimizer at B=24,
    512x512, bf16, full width, dropout 0.5, with the dot-free mode off and
-   on: K7 once per step only with it on, K2 once per step and K3/K4 never
-   (no backbone backward), finite losses, the seenmask head and upscore
-   moved and every other parameter bit-identical, the last step with host
-   syncs turned into errors; its time and peak memory per mode;
+   on: K7 (narrow) once per step only with it on, K2 once per step and
+   K3/K4 never (no backbone backward), finite losses, the seenmask head
+   and upscore moved and every other parameter bit-identical, the last
+   step with host syncs turned into errors; its time and peak memory per
+   mode;
 14. the fcn and szn eval steps, unfused and fused, at B=16, 512x512: in
    fp32 K1 once per fused call and the fused labels' flip rate vs the
-   unfused ones < 1e-4; their times in bf16;
+   unfused ones < 1e-4; in bf16 K2 once per fused call; their times in
+   bf16;
 15. times: the stage-1 step in the default and dot-free modes in turns,
    stage 2, the eval steps, and K7 at each product beside its plain
    version, torch.matmul and its bound;
@@ -90,7 +102,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
 18. the row dot (K10b) vs its plain version at (8, 512, 512, 21) and at odd
    small shapes (rtol 1e-6, atol 1e-6), K7 at the probe's 512x512 fp32
    product vs an fp64 product (relative norm < 1e-5), and their times
-   beside plain versions, torch.linalg.vecdot / torch.matmul and bounds;
+   beside plain versions, torch.linalg.vecdot / torch.matmul and bounds
+   (the 512x512 product and torch.matmul also by device time alone);
 19. scripts/torch_probe_h2d.py pallas_dot rowdot_pl, one fresh process per
    mode: exit code 0, one JSON line per mode, K7 (K10a) and K10b launched,
    the bandwidths logged.
@@ -140,6 +153,9 @@ PDOT_SHAPES = (("fc6_input_grad", 6936, 4096, 25088, False),
                ("seenmask_score_weight_grad", 4096, 6936, 2, True))
 # the edge shapes of the JAX package's tests/test_pdot.py: (M, K, N)
 PDOT_EDGES = ((8, 128, 128), (17, 21, 33), (130, 257, 140), (1, 300, 1))
+# aligned products with ragged M, N and K tiles: the tma variant, and wmma
+# for the trans_a operand whose rows are not 16-byte aligned (M = 300)
+PDOT_RAGGED = ((300, 1000, 264), (512, 1000, 264))
 # K8: the JAX test's shapes (tests/test_block1_fused.py:176) and the block-1
 # bench's (scripts/bench_block1.py:16)
 C11_SHAPES = ((2, 38, 42, 3), (2, 66, 34, 3), (16, 530, 530, 3))
@@ -176,6 +192,23 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int) -> float:
+    """Device time of one call of `fn`: torch.profiler's summed device
+    kernel time over `iters` calls (after a warm-up), per call. Unlike
+    `time_ms` it leaves out the host's time between launches, which sets
+    the event time of a product as small as the probe's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total
+               for e in prof.key_averages()) / 1e3 / iters
+
+
 def rel(a, b) -> float:
     """Relative Frobenius norm of a - b against b, in fp64."""
     a, b = a.double(), b.double()
@@ -189,13 +222,15 @@ def bound(nbytes: float, ops: float, peak: float):
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
-def phase_pdot(dev, pd, log, require) -> list:
+def phase_pdot(dev, pd, kernels, log, require) -> list:
     """Phase 11: K7 vs its plain version at the dot-free model's four
     shapes (bf16 in, fp32 out; the plain version is cuBLAS's fp32 product
     of the same rounded inputs, TF32 off: rtol 1e-4, atol 1e-3 of the
-    output's root-mean-square), fp32 at the fc7 shape and the edge shapes
-    vs an fp64 product (relative Frobenius norm < 1e-5), and each path
-    shape's times beside the plain version, torch.matmul and the bound."""
+    output's root-mean-square), at ragged tma shapes, fp32 at the fc7 shape
+    and the edge shapes vs an fp64 product (relative Frobenius norm <
+    1e-5); each product's variant (`pdot_plan`) with its own launch count,
+    two calls bit-equal; each path shape's times beside the plain version,
+    torch.matmul and the bound."""
     import torch
 
     def operands(m, k, n, trans, dtype):
@@ -203,22 +238,31 @@ def phase_pdot(dev, pd, log, require) -> list:
         return a.to(dtype), torch.randn(k, n, device=dev).to(dtype)
 
     def bf16_check(name, a, b, trans):
+        plan = pd.plan_for(a, b, trans_a=trans)
+        key = "pdot_" + plan["variant"]
+        before = kernels.launch_counts[key]
         got = pd.pdot(a, b, out_dtype=torch.float32, trans_a=trans)
+        again = pd.pdot(a, b, out_dtype=torch.float32, trans_a=trans)
         want = pd.pdot_plain(a, b, out_dtype=torch.float32, trans_a=trans)
         torch.cuda.synchronize()
+        launched = kernels.launch_counts[key] - before
         scale = (want.norm() / want.numel() ** 0.5).item()
         err, r = (got - want).abs().max().item(), rel(got, want)
-        log(f"[K7] {name} bf16 (trans_a={trans}): max|err| vs plain "
-            f"{err:.3e} (atol {1e-3 * scale:.3e}, rtol 1e-4), rel-norm "
-            f"{r:.3e}")
+        same = torch.equal(got, again)
+        log(f"[K7] {name} bf16 (trans_a={trans}): {plan['variant']} "
+            f"({plan['splits']} K splits), max|err| vs plain {err:.3e} (atol "
+            f"{1e-3 * scale:.3e}, rtol 1e-4), rel-norm {r:.3e}, two calls "
+            f"bit-equal: {same}")
+        require(launched == 2, f"K7 {name}: {launched} {key} launches of 2")
         require(torch.allclose(got, want, rtol=1e-4, atol=1e-3 * scale),
                 f"K7 {name} bf16 max|err| {err}")
-        return err, r
+        require(same, f"K7 {name} bf16: two calls differ")
+        return err, r, plan
 
     rows = []
     for name, m, k, n, trans in PDOT_SHAPES:
         a, b = operands(m, k, n, trans, torch.bfloat16)
-        err, r = bf16_check(name, a, b, trans)
+        err, r, plan = bf16_check(name, a, b, trans)
         a_lib = a.t() if trans else a
         ops = 2.0 * m * k * n
         b_ms, by = bound(a.numel() * 2 + b.numel() * 2 + m * n * 4, ops,
@@ -227,16 +271,28 @@ def phase_pdot(dev, pd, log, require) -> list:
                                      trans_a=trans), iters=10)
         rows.append({
             "name": name, "m": m, "k": k, "n": n, "trans_a": trans,
+            "variant": plan["variant"], "splits": plan["splits"],
             "ms": ms, "tflop_s": ops / ms / 1e9,
             "plain_ms": time_ms(lambda: pd.pdot_plain(
                 a, b, out_dtype=torch.float32, trans_a=trans), iters=3),
             "library_ms": time_ms(lambda: torch.matmul(a_lib, b), iters=10),
+            "device_ms": device_ms(lambda: pd.pdot(
+                a, b, out_dtype=torch.float32, trans_a=trans), iters=10),
+            "library_device_ms": device_ms(lambda: torch.matmul(a_lib, b),
+                                           iters=10),
             "bound_ms": b_ms, "bound_by": by, "max_abs_err": err,
-            "rel_norm": r})
-        log(f"[K7] {name}: {ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s), "
-            f"plain {rows[-1]['plain_ms']:.3f}, torch.matmul "
-            f"{rows[-1]['library_ms']:.4f}, bound {b_ms:.4f} ({by})")
+            "rel_norm": r, "bit_equal": True})
+        log(f"[K7] {name} ({plan['variant']}): {ms:.4f} ms "
+            f"({ops / ms / 1e9:.1f} TFLOP/s), plain "
+            f"{rows[-1]['plain_ms']:.3f}, torch.matmul "
+            f"{rows[-1]['library_ms']:.4f}, bound {b_ms:.4f} ({by}); device "
+            f"time alone (profiler) {rows[-1]['device_ms']:.4f}, torch.matmul "
+            f"{rows[-1]['library_device_ms']:.4f}")
         del a, b, a_lib
+    for m, k, n in PDOT_RAGGED:
+        for trans in (False, True):
+            a, b = operands(m, k, n, trans, torch.bfloat16)
+            bf16_check(f"{m}x{k}x{n}", a, b, trans)
     a, b = operands(4096, 6936, 4096, True, torch.float32)
     ref64 = a.double().t() @ b.double()
     r_k = rel(pd.pdot(a, b, trans_a=True), ref64)
@@ -249,8 +305,14 @@ def phase_pdot(dev, pd, log, require) -> list:
         for trans in (False, True):
             a, b = operands(m, k, n, trans, torch.float32)
             a64 = a.double().t() if trans else a.double()
-            r_k = rel(pd.pdot(a, b, trans_a=trans), a64 @ b.double())
+            got = pd.pdot(a, b, trans_a=trans)
+            r_k = rel(got, a64 @ b.double())
+            log(f"[K7] {m}x{k}x{n} fp32 (trans_a={trans}): "
+                f"{pd.plan_for(a, b, trans_a=trans)}, rel-norm vs fp64 "
+                f"{r_k:.3e} (bar 1e-5)")
             require(r_k < 1e-5, f"K7 fp32 {m}x{k}x{n} rel {r_k}")
+            require(torch.equal(got, pd.pdot(a, b, trans_a=trans)),
+                    f"K7 fp32 {m}x{k}x{n}: two calls differ")
             bf16_check(f"{m}x{k}x{n}", a.bfloat16(), b.bfloat16(), trans)
     return rows
 
@@ -260,7 +322,8 @@ def phase_eval(dev, model, train_batch, embed, uv, k_cls, log, require,
     """Phase 14: the fcn and szn eval steps, unfused and fused, at
     B=EVAL_BATCH, 512x512: in fp32 the fused labels (K1, one launch per
     fused call) vs the unfused ones (flip rate < 1e-4), the same true-label
-    histogram rows and loss; then each step's ms per batch in bf16."""
+    histogram rows and loss; K2 once per fused bf16 call; then each step's
+    ms per batch in bf16."""
     import torch
     from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
     from zeroshotsemanticsegmentation_tpu_torch.train import (
@@ -301,6 +364,13 @@ def phase_eval(dev, model, train_batch, embed, uv, k_cls, log, require,
                 f"{name} eval histograms")
     del m32
     mbf = model(torch.bfloat16)
+    for name, (_, fused) in steps.items():  # bf16 block 1 on K2's wgmma path
+        _kernels.reset_launch_counts()
+        fused(mbf, ebatch)
+        torch.cuda.synchronize()
+        out[f"{name}_fused_bf16_k2_launches"] = k2 = \
+            _kernels.launch_counts["block1_fused"]
+        require(k2 == 1, f"{name} fused bf16 eval: {k2} K2 launches")
     for name, pair in steps.items():
         for suffix, fn in zip(("", "_fused"), pair):
             out[f"{name}{suffix}_ms_per_batch"] = time_ms(
@@ -308,10 +378,12 @@ def phase_eval(dev, model, train_batch, embed, uv, k_cls, log, require,
     return out
 
 
-def kernel_build_stats(kernels, lib: str) -> dict:
-    """Per kernel function of library `lib`: registers, static shared
-    memory and spill bytes from ptxas's -v summary, and, where cuobjdump is
-    on the machine, the count of HGMMA (wgmma) instructions in its SASS."""
+def kernel_build_stats(kernels, lib: str, names) -> dict:
+    """Per kernel function of library `lib` named in `names`: registers,
+    static shared memory and spill bytes from ptxas's -v summary, and,
+    where cuobjdump is on the machine, the count of HGMMA (wgmma)
+    instructions in its SASS. A template's instances are keyed
+    `name<args>` (e.g. `pdot_tma<256,1>`)."""
     stats, fn = {}, None
     for line in kernels.build_logs.get(lib, "").splitlines():
         if "Compiling entry function" in line:
@@ -339,13 +411,18 @@ def kernel_build_stats(kernels, lib: str) -> dict:
                 stats[fn]["hgmma"] += 1
     short = {}
     for mangled, st in stats.items():
-        for name in ("conv2_pool_fwd_wgmma", "conv2_pool_route_wgmma",
-                     "conv2_wgrad_wgmma", "conv2_dgrad_wgmma",
-                     "conv2_pool_fwd", "conv2_pool_route", "conv2_wgrad",
-                     "conv2_dgrad", "wgrad_reduce"):
-            if f"{len(name)}{name}" in mangled:
-                short.setdefault(name, {}).update(st)
-                break
+        for name in names:
+            tag = f"{len(name)}{name}"
+            at = mangled.find(tag)
+            if at < 0:
+                continue
+            rest = mangled[at + len(tag):]
+            key = name
+            if rest.startswith("I"):
+                key += "<" + ",".join(re.findall(
+                    r"L[a-z](\d+)E", rest[:rest.find("EE") + 2])) + ">"
+            short.setdefault(key, {}).update(st)
+            break
     return short
 
 
@@ -625,19 +702,25 @@ def phase_rowdot(dev, rd, pd, log, require) -> dict:
     got, want = pd.pdot(a, b), pd.pdot_plain(a, b)
     r = rel(got, a.double() @ b.double())
     err = (got - want).abs().max().item()
-    log(f"[K10a] 512x512 fp32 on K7: rel-norm vs fp64 {r:.3e} (bar 1e-5), "
-        f"max|err| vs plain {err:.3e}")
+    plan = pd.plan_for(a, b)
+    log(f"[K10a] 512x512 fp32 on K7 ({plan}): rel-norm vs fp64 {r:.3e} (bar "
+        f"1e-5), max|err| vs plain {err:.3e}")
     require(r < 1e-5, f"K7 at 512x512 fp32: rel {r}")
     b_ms, by = bound(3 * 512 * 512 * 4, 2.0 * 512 ** 3, PEAK_FP32_FLOP_S)
     out["k10a"] = {
         "max_abs_err": err, "rel_norm": r, "shape": [512, 512, 512],
+        "variant": plan["variant"], "splits": plan["splits"],
         "ms": time_ms(lambda: pd.pdot(a, b), iters=20),
         "plain_ms": time_ms(lambda: pd.pdot_plain(a, b), iters=20),
         "library_ms": time_ms(lambda: torch.matmul(a, b), iters=20),
+        "device_ms": device_ms(lambda: pd.pdot(a, b), iters=20),
+        "library_device_ms": device_ms(lambda: torch.matmul(a, b), iters=20),
         "bound_ms": b_ms, "bound_by": by}
     k = out["k10a"]
     log(f"[K10a] {k['ms']:.4f} ms, plain {k['plain_ms']:.4f}, torch.matmul "
-        f"{k['library_ms']:.4f}, bound {b_ms:.4f} ({by})")
+        f"{k['library_ms']:.4f}, bound {b_ms:.4f} ({by}); device time alone "
+        f"(profiler) {k['device_ms']:.4f} ms, torch.matmul "
+        f"{k['library_device_ms']:.4f}")
     return out
 
 
@@ -743,13 +826,30 @@ def main() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    b1_build = kernel_build_stats(_kernels, "block1_train")
-    for fn, st in b1_build.items():
-        log(f"[build] block1_train {fn}: {st}")
-    for fn in ("conv2_pool_fwd_wgmma", "conv2_pool_route_wgmma",
-               "conv2_wgrad_wgmma", "conv2_dgrad_wgmma"):
-        require(b1_build.get(fn, {}).get("hgmma", 1) > 0,
-                f"{fn} has no HGMMA instruction: {b1_build.get(fn)}")
+    b1_build = kernel_build_stats(_kernels, "block1_train", (
+        "conv2_pool_fwd_wgmma", "conv2_pool_route_wgmma",
+        "conv2_wgrad_wgmma", "conv2_dgrad_wgmma", "conv2_pool_fwd",
+        "conv2_pool_route", "conv2_wgrad", "conv2_dgrad", "wgrad_reduce"))
+    k2_build = kernel_build_stats(_kernels, "block1_fused", (
+        "block1_fused_wgmma", "block1_kernel"))
+    k7_build = kernel_build_stats(_kernels, "pdot", (
+        "pdot_tma", "pdot_narrow", "pdot_bf16", "pdot_f32", "pdot_reduce"))
+    for lib, built in (("block1_train", b1_build), ("block1_fused", k2_build),
+                       ("pdot", k7_build)):
+        for fn, st in built.items():
+            log(f"[build] {lib} {fn}: {st}")
+    # each bf16 wgmma kernel: HGMMA in its SASS (where cuobjdump exists)
+    for built, fns in (
+            (b1_build, ("conv2_pool_fwd_wgmma", "conv2_pool_route_wgmma",
+                        "conv2_wgrad_wgmma", "conv2_dgrad_wgmma")),
+            (k2_build, ("block1_fused_wgmma",)),
+            (k7_build, ("pdot_tma<256,0>", "pdot_tma<256,1>",
+                        "pdot_narrow<8>", "pdot_narrow<16>",
+                        "pdot_narrow<24>"))):
+        for fn in fns:
+            require(fn in built and built[fn].get("hgmma", 1) > 0,
+                    f"{fn} is not built with an HGMMA instruction: "
+                    f"{built.get(fn)}")
 
     @contextlib.contextmanager
     def plain_versions():
@@ -832,7 +932,6 @@ def main() -> None:
                 torch.randn(64, 64, 3, 3, device=dev) * gen_scale[2],
                 torch.randn(64, device=dev) * gen_scale[3])
 
-    k2_bf16_err = None
     for shape in ((2, 522, 522, 3), (2, 375 + 11, 500 + 10, 3)):
         xp = torch.randn(*shape, device=dev)
         wts = b1_weights()
@@ -857,8 +956,25 @@ def main() -> None:
         log(f"[K2] {shape}: vs fp64, kernel fp32 max|err| {e_kern:.3e}, "
             f"plain fp32 max|err| {e_plain:.3e}")
         require(e_kern <= 1e-4, f"K2 fp32 vs fp64 error {e_kern}")
-        if k2_bf16_err is None:
-            k2_bf16_err = err16
+    # bf16 K2 at the serving batch vs its plain version, and two calls
+    # bit-equal
+    xp = torch.randn(SERVE_BATCH, H + 10, W + 10, 3, device=dev)
+    wts = b1_weights()
+    with torch.inference_mode():
+        ref = b1.block1_plain(xp, *wts, torch.float32)
+        got16 = b1.block1_op(xp, *wts, torch.bfloat16)
+        again = b1.block1_op(xp, *wts, torch.bfloat16)
+    torch.cuda.synchronize()
+    k2_bf16_err = (got16.float() - ref).abs().max().item()
+    bar16 = 2 * ref.abs().max().item() * 2.0 ** -8
+    k2_bit_equal = torch.equal(got16, again)
+    log(f"[K2] {tuple(xp.shape)} bf16: max|err| vs plain fp32 "
+        f"{k2_bf16_err:.3e} (bar {bar16:.3e}); two calls bit-equal: "
+        f"{k2_bit_equal}")
+    require(got16.shape == ref.shape and k2_bf16_err <= bar16,
+            f"K2 bf16 error {k2_bf16_err} > {bar16} at {tuple(xp.shape)}")
+    require(k2_bit_equal, "two bf16 K2 calls differ")
+    del xp, ref, got16, again
 
     # ---- 5. the slice ---------------------------------------------------
     def model(dtype, seed=0):
@@ -895,6 +1011,16 @@ def main() -> None:
         bf16_plain = serve(requests[0])
     log(f"[slice] bf16 flip rate kernels vs plain versions: "
         f"{flip_rate(outs[0], bf16_plain):.3e}")
+    # the serving bf16 bar: bf16 labels through the kernels at most 2x as
+    # far from the fp32 labels as bf16 labels with block 1 through its
+    # plain version (scripts/torch_serving_bar.py)
+    sbar = load_script("torch_serving_bar").run(
+        log=lambda m: log(f"[serving bar] {m}"))
+    require(sbar["block1_fused_launches"] > 0,
+            f"the serving bar's kernel run did not launch K2: {sbar}")
+    require(sbar["flip_kernels"] <= 2 * sbar["flip_plain"],
+            f"bf16 serving flips {sbar['flip_kernels']} vs fp32, more than "
+            f"2x the plain block 1's {sbar['flip_plain']}")
 
     m32 = model(torch.float32)
     for trained in (False, True):
@@ -1381,7 +1507,7 @@ def main() -> None:
         + f" ms ({k4_chunks} dK2 chunks)")
 
     # ---- 11. K7 (matmul) vs plain -----------------------------------------
-    pdot_rows = phase_pdot(dev, pd, log, require)
+    pdot_rows = phase_pdot(dev, pd, _kernels, log, require)
 
     # ---- 12. stage 1 under the dot-free mode ------------------------------
     px = TRAIN_BATCH * (H // 32 + 1) ** 2   # fc6 output pixels: 24 * 17^2
@@ -1406,6 +1532,11 @@ def main() -> None:
         require(dlaunches["pdot"] == 3 * TRAIN_STEPS,
                 f"K7 launched {dlaunches['pdot']} times in {TRAIN_STEPS} "
                 f"dot-free steps, not 3 per step")
+        # fc6's input gradient and fc7's weight gradient on tma, score_fr's
+        # weight gradient (N = 20) on narrow
+        require(dlaunches["pdot_tma"] == 2 * TRAIN_STEPS
+                and dlaunches["pdot_narrow"] == TRAIN_STEPS,
+                f"K7's variants in the dot-free steps: {dlaunches}")
         for key in ("block1_train_fwd", "block1_train_bwd", "costail_fwd",
                     "costail_bwd"):
             require(dlaunches[key] == TRAIN_STEPS,
@@ -1465,9 +1596,10 @@ def main() -> None:
                 f"steps {slaunches}; losses {slosses}; hist "
                 f"{saux[-1]['hist'].tolist()}; seenmask_grad_sum "
                 f"{[a['seenmask_grad_sum'].item() for a in saux]}")
-            require(slaunches["pdot"] == (STAGE2_STEPS if mode else 0),
-                    f"stage 2 K7 launches {slaunches['pdot']} "
-                    f"(dot_free={mode})")
+            require(slaunches["pdot"] == slaunches["pdot_narrow"]
+                    == (STAGE2_STEPS if mode else 0),
+                    f"stage 2 K7 launches {slaunches} (dot_free={mode}; the "
+                    f"seenmask_score weight gradient, N = 2, on narrow)")
             require(slaunches["block1_fused"] == STAGE2_STEPS,
                     f"stage 2 must run block 1 through K2 once per step: "
                     f"{slaunches}")
@@ -1556,7 +1688,13 @@ def main() -> None:
          "launches": launches["block1_fused"], "max_abs_err": k2_bf16_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms,
-         "shape": [SERVE_BATCH, H + 10, W + 10, 3], "dtype": "bfloat16"},
+         "shape": [SERVE_BATCH, H + 10, W + 10, 3], "dtype": "bfloat16",
+         "bit_equal": k2_bit_equal, "serving_bar": sbar,
+         "design": "block1_fused_wgmma: persistent, conv1_1 as a K=32 "
+                   "wgmma GEMM from the input patch into the c11 tile, "
+                   "conv1_2 on c3w::conv_mainloop, PoolStore epilogue; fp32 "
+                   "keeps the CUDA-core block1_kernel",
+         "build": k2_build},
         {"name": "block1_train_forward", "route": "cuda",
          "source": src + "block1_train.cu",
          "replaces": ref + "block1_fused.py:288",
@@ -1619,8 +1757,14 @@ def main() -> None:
          "bound_by": fc6_row["bound_by"],
          "library_ms": fc6_row["library_ms"],
          "shape": [fc6_row["m"], fc6_row["k"], fc6_row["n"]],
-         "dtype": "bfloat16 in, float32 out",
-         "shapes": pdot_rows},
+         "dtype": "bfloat16 in, float32 out", "variant": fc6_row["variant"],
+         "launches_by_variant": {v: dlaunches[f"pdot_{v}"] for v in (
+             "tma", "narrow", "wmma", "fp32")},
+         "design": "tma: TMA ring + wgmma, one producer and two consumer "
+                   "warpgroups, persistent; narrow: wgmma n8/16/24, cp.async "
+                   "ring, 512-deep K chunks + ordered reduce; wmma and fp32 "
+                   "for the other shapes",
+         "build": k7_build, "shapes": pdot_rows},
         {"name": "conv1_1_pairs", "route": "cuda",
          "source": src + "conv1_1.cu",
          "replaces": ref + "block1_fused.py:201",

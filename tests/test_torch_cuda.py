@@ -83,6 +83,24 @@ def test_block1_kernel_matches_plain(rng, cuda, dtype, hw):
         assert err <= 2 * ref.abs().max().item() * 2.0 ** -8
 
 
+@pytest.mark.parametrize("shape", [(1, 22, 26), (3, 38, 42), (2, 70, 134),
+                                   (1, 386, 510)])
+def test_block1_wgmma_matches_plain_and_repeats(rng, cuda, shape):
+    """bf16 K2 (`block1_fused_wgmma`, persistent: more tiles than SMs at
+    (1, 386, 510)) vs the fp32 plain version at the 2-ULP bar, and two
+    calls bit-equal."""
+    xp = _t(rng.randn(*shape, 3).astype(np.float32), cuda)
+    args = _b1_weights(rng, cuda)
+    with torch.inference_mode():
+        got = tb1.block1_fused(xp, *args, torch.bfloat16)
+        again = tb1.block1_fused(xp, *args, torch.bfloat16)
+        ref = tb1.block1_plain(xp, *args, torch.float32)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert (got.float() - ref).abs().max().item() <= \
+        2 * ref.abs().max().item() * 2.0 ** -8
+    assert torch.equal(got, again)
+
+
 def _t(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
@@ -321,6 +339,37 @@ def test_pdot_kernel_matches_plain(rng, cuda, dtype, trans_a, m, k, n):
         assert got16.dtype == torch.bfloat16
         torch.testing.assert_close(got16, got.to(torch.bfloat16), rtol=0,
                                    atol=0)
+
+
+@pytest.mark.parametrize("m,k,n,trans_a,variant", [
+    (300, 1000, 264, False, "tma"), (512, 1000, 264, True, "tma"),
+    (640, 4096, 768, False, "tma"), (1000, 2000, 20, True, "narrow"),
+    (4096, 700, 2, True, "narrow"), (256, 300, 16, True, "narrow"),
+    (300, 1000, 264, True, "wmma"), (17, 2000, 33, False, "wmma"),
+    (512, 512, 512, False, "fp32")])
+def test_pdot_variants_match_plain_and_repeat(rng, cuda, m, k, n, trans_a,
+                                              variant):
+    """Each K7 variant, chosen by `pdot_plan`, vs the plain version (bf16:
+    rtol 1e-4, atol 1e-3 of the output's rms; fp32: relative norm < 1e-5 vs
+    fp64), its own launch count, and two calls bit-equal."""
+    dtype = torch.float32 if variant == "fp32" else torch.bfloat16
+    a = _t(rng.randn(*((k, m) if trans_a else (m, k))).astype(np.float32),
+           cuda).to(dtype)
+    b = _t(rng.randn(k, n).astype(np.float32), cuda).to(dtype)
+    assert tpd.plan_for(a, b, trans_a=trans_a)["variant"] == variant
+    key = "pdot_" + variant
+    before = _kernels.launch_counts[key]
+    got = tpd.pdot(a, b, out_dtype=torch.float32, trans_a=trans_a)
+    again = tpd.pdot(a, b, out_dtype=torch.float32, trans_a=trans_a)
+    assert _kernels.launch_counts[key] == before + 2
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        a64 = a.double().t() if trans_a else a.double()
+        assert _rel(got, a64 @ b.double()) < 1e-5
+    else:
+        want = tpd.pdot_plain(a, b, out_dtype=torch.float32, trans_a=trans_a)
+        rms = (want.norm() / want.numel() ** 0.5).item()
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3 * rms)
 
 
 def test_pdot_refuses_strided_operands(cuda):

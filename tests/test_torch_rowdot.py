@@ -1,7 +1,7 @@
 """The H2D probe's two TPU kernels in the port: the row dot (`ops.rowdot`,
 K10b) vs the probe's Pallas body, and the 512x512 fp32 product (K10a, on
-`ops.pdot`) vs `jnp.dot` at HIGHEST; and the two GPU-only scripts of this
-slice refusing to run without a card.
+`ops.pdot`) vs `jnp.dot` at HIGHEST; and the GPU-only scripts (the probe,
+the block-1 bench, the serving bf16 bar) refusing to run without a card.
 
 On the CPU the port's wrappers run their plain PyTorch versions; the Pallas
 body runs in interpret mode. The CUDA kernels are held against the plain
@@ -114,7 +114,8 @@ def test_probe_kernel_bodies_unchanged(body, copy):
 
 
 @pytest.mark.parametrize("script", ["torch_probe_h2d.py",
-                                    "torch_bench_block1.py"])
+                                    "torch_bench_block1.py",
+                                    "torch_serving_bar.py"])
 def test_gpu_scripts_refuse_without_a_card(script):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the script would run")

@@ -258,44 +258,8 @@ __global__ void __launch_bounds__(kThreads) conv2_dgrad(
 // ---- bf16 on the tensor cores -------------------------------------------
 
 using bf16 = __nv_bfloat16;
-
-// the pooled window of accumulator rows (lane / 4, + 8) of both m64 tiles:
-// pre-activation of quadrant q = (dy, dx) of channel 8 c + 2 (lane % 4) + j
-__device__ __forceinline__ float quad(const float (&acc)[2][32], int q, int c,
-                                      int j) {
-  return acc[q >> 1][4 * c + 2 * (q & 1) + j];
-}
-
-// K3's epilogue: + b2, ReLU, 2x2 max, one rounding to bf16
-struct PoolStore {
-  const float* b2;
-  bf16* out;
-  int ph, pw;
-  __device__ __forceinline__ void operator()(int b, int ty, int tx,
-                                             const float (&acc)[2][32],
-                                             int wg, int warp,
-                                             int lane) const {
-    const int py = c3w::kWin * ty + 4 * wg + warp;
-    const int px = c3w::kWin * tx + lane / 4;
-    if (py >= ph || px >= pw) return;
-    const int ch = 2 * (lane % 4);
-    bf16* o = out + ((static_cast<size_t>(b) * ph + py) * pw + px) * kC + ch;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      float m[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float bias = b2[8 * c + ch + j];
-        m[j] = fmaxf(quad(acc, 0, c, j) + bias, 0.f);
-#pragma unroll
-        for (int q = 1; q < 4; ++q)
-          m[j] = fmaxf(m[j], fmaxf(quad(acc, q, c, j) + bias, 0.f));
-      }
-      *reinterpret_cast<__nv_bfloat162*>(o + 8 * c) =
-          __floats2bfloat162_rn(m[0], m[1]);
-    }
-  }
-};
+using c3w::PoolStore;
+using c3w::quad;
 
 // K4's route: g to the first maximum in window scan order where its
 // pre-activation is > 0; dz in bf16

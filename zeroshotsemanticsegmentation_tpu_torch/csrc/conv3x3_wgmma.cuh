@@ -1,7 +1,9 @@
 // The bf16 3x3, 64 -> 64 channel convolution on Hopper's tensor cores: one
 // implicit-GEMM mainloop (`conv_mainloop`) that K3's forward, K4's route
-// recompute and K4's dgrad all run (csrc/block1_train.cu), and the `wgmma`
-// pieces K4's weight gradient builds on.
+// recompute and K4's dgrad (csrc/block1_train.cu) and K2's conv1_2
+// (csrc/block1_fused.cu) all run, K3's and K2's pool epilogue
+// (`PoolStore`), and the `wgmma` pieces K4's weight gradient and K7
+// (csrc/pdot.cu) build on.
 //
 // The GEMM: M = a tile's output pixels, N = the 64 output channels, K = 576
 // (9 taps x 64 input channels), bf16 products summed in fp32 by
@@ -109,9 +111,10 @@ __device__ __forceinline__ void wg_wait() {
 }
 // keeps the compiler from moving accumulator registers across wgmma's
 // asynchronous writes
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (m64 x n64, fp32) += A (m64 x k16 bf16, registers) x B (k16 x n64 bf16,
@@ -199,6 +202,46 @@ __device__ __forceinline__ void conv_mainloop(uint32_t tile, uint32_t wts,
   fence_acc(acc[0]);
   fence_acc(acc[1]);
 }
+
+// the pooled window of accumulator rows (lane / 4, + 8) of both m64 tiles:
+// pre-activation of quadrant q = (dy, dx) of channel 8 c + 2 (lane % 4) + j
+__device__ __forceinline__ float quad(const float (&acc)[2][32], int q, int c,
+                                      int j) {
+  return acc[q >> 1][4 * c + 2 * (q & 1) + j];
+}
+
+// the pool epilogue of K3 and K2: + b2 in fp32, ReLU, 2x2 max, one rounding
+// to bf16; pooled pixels past (ph, pw) are not stored
+struct PoolStore {
+  const float* b2;
+  __nv_bfloat16* out;
+  int ph, pw;
+  __device__ __forceinline__ void operator()(int b, int ty, int tx,
+                                             const float (&acc)[2][32],
+                                             int wg, int warp,
+                                             int lane) const {
+    const int py = kWin * ty + 4 * wg + warp;
+    const int px = kWin * tx + lane / 4;
+    if (py >= ph || px >= pw) return;
+    const int ch = 2 * (lane % 4);
+    __nv_bfloat16* o =
+        out + ((static_cast<size_t>(b) * ph + py) * pw + px) * kC + ch;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float m[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float bias = b2[8 * c + ch + j];
+        m[j] = fmaxf(quad(acc, 0, c, j) + bias, 0.f);
+#pragma unroll
+        for (int q = 1; q < 4; ++q)
+          m[j] = fmaxf(m[j], fmaxf(quad(acc, q, c, j) + bias, 0.f));
+      }
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * c) =
+          __floats2bfloat162_rn(m[0], m[1]);
+    }
+  }
+};
 
 // A persistent block walks tiles blockIdx.x, + gridDim.x, ... of a
 // (batch, tiles_y, tiles_x) grid of 16x16-output tiles; tile (ty, tx) reads

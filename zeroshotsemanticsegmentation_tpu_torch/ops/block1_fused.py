@@ -6,7 +6,11 @@
 * a CPU tensor runs `block1_plain`, the plain PyTorch version with the JAX
   package's `xla_block1` semantics, differentiated by autograd;
 * a CUDA call that needs no gradient launches `csrc/block1_fused.cu` (K2),
-  which keeps the conv1_1 activation on chip;
+  which keeps the conv1_1 activation on chip: in bf16 on the tensor cores
+  (`block1_fused_wgmma`: conv1_1 as a K = 32 GEMM from the input patch,
+  then conv1_2 on the same `wgmma` mainloop and pool epilogue as K3, both
+  weight images packed by `pack_conv_weights`; `block1_tile_plan` mirrors
+  its tiling for the CPU tests), in fp32 on the CUDA cores;
 * a CUDA call that needs a gradient runs the two-stage training form
   `block1_train`: conv1_1 + bias + ReLU as ordinary torch ops (the JAX
   package leaves this conv to XLA), then `Conv2Pool`, whose forward
@@ -65,7 +69,9 @@ def block1_plain(xp, k1, b1, k2, b2, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def block1_fused(xp, k1, b1, k2, b2, dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel wrapper: launches `csrc/block1_fused.cu` (CUDA tensors only)."""
+    """Kernel wrapper: launches `csrc/block1_fused.cu` (CUDA tensors only);
+    bf16 on the tensor cores (`block1_fused_wgmma`), fp32 on the CUDA
+    cores."""
     _check_geometry(xp)
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"block1_fused: dtype {dtype} not supported")
@@ -82,11 +88,16 @@ def block1_fused(xp, k1, b1, k2, b2, dtype=torch.bfloat16) -> torch.Tensor:
                              f"{shape} on {dev}")
     x = xp.to(dtype).contiguous()
     b, hp, wp, _ = x.shape
-    if b > 65535:
+    if dtype == torch.float32 and b > 65535:
         raise ValueError(f"block1_fused: batch {b} exceeds the grid limit")
-    # weights as fp32 values rounded to `dtype`, HWIO; b1 rounded, b2 fp32
-    hwio = lambda k: k.to(dtype).to(torch.float32).permute(2, 3, 1, 0)  # noqa: E731
-    k1h, k2h = hwio(k1).contiguous(), hwio(k2).contiguous()
+    if dtype == torch.bfloat16:
+        # the packed wgmma images of conv1_1's (32, 64) and conv1_2's
+        # (9, 64, 64) B matrices
+        k1h = pack_conv_weights(conv1_1_b_matrix(k1.to(dtype))[None])
+        k2h = pack_conv_weights(conv_b_matrices(k2.to(dtype)))
+    else:
+        k1h = k1.to(dtype).permute(2, 3, 1, 0).contiguous()  # HWIO
+        k2h = k2.to(dtype).permute(2, 3, 1, 0).contiguous()
     b1r = b1.to(dtype).to(torch.float32).contiguous()
     b2f = b2.to(torch.float32).contiguous()
     out = torch.empty((b, (hp - 4) // 2, (wp - 4) // 2, 64), dtype=dtype,
@@ -167,13 +178,24 @@ def conv_b_matrices(k2: torch.Tensor, flip: bool = False) -> torch.Tensor:
     return k2.permute(2, 3, 1, 0).reshape(9, 64, 64)
 
 
+def conv1_1_b_matrix(k1: torch.Tensor) -> torch.Tensor:
+    """conv1_1's GEMM B operand for bf16 K2, (32, 64) [k][n], from OIHW
+    k1: B[(kh * 3 + kw) * 3 + ci][co] = k1[co, ci, kh, kw], rows 27-31
+    zero (K padded to two k16 steps)."""
+    b = k1.permute(2, 3, 1, 0).reshape(27, 64)
+    return torch.cat([b, b.new_zeros(5, 64)])
+
+
 def pack_conv_weights(b: torch.Tensor) -> torch.Tensor:
-    """(9, 64, 64) [tap][k][n] -> the bf16 shared-memory image the wgmma
-    mainloop reads as B: 36 steps (tap, 16-channel k step) of 2048 B, each
-    the no-swizzle K-major layout of 8x2 core matrices (n-group nc, k-half
-    kc) at (2 nc + kc) * 128 B, a core matrix 8 n-rows of 8 k values.
-    Shape (9, 4, 8, 2, 8, 8): [tap][ks][nc][kc][n % 8][k % 8]."""
-    return (b.to(torch.bfloat16).reshape(9, 4, 2, 8, 8, 8)
+    """(T, K, 64) [tap][k][n], K a multiple of 16 -> the bf16
+    shared-memory image the wgmma mainloop reads as B: T * K / 16 steps
+    (tap, 16-channel k step) of 2048 B, each the no-swizzle K-major layout
+    of 8x2 core matrices (n-group nc, k-half kc) at (2 nc + kc) * 128 B, a
+    core matrix 8 n-rows of 8 k values. Shape (T, K / 16, 8, 2, 8, 8):
+    [tap][ks][nc][kc][n % 8][k % 8]. conv1_2's (9, 64, 64) gives the 72 KB
+    image, conv1_1's (1, 32, 64) the 4 KB one."""
+    t, k, _ = b.shape
+    return (b.to(torch.bfloat16).reshape(t, k // 16, 2, 8, 8, 8)
             .permute(0, 1, 4, 2, 5, 3).contiguous())
 
 
@@ -187,6 +209,16 @@ def conv_tile_plan(batch: int, hc: int, wc: int) -> dict:
     w, t = WGMMA_WINDOWS, 2 * WGMMA_WINDOWS
     return {"pool": (batch, -(-ph // w), -(-pw // w)),
             "dgrad": (batch, -(-hc // t), -(-wc // t))}
+
+
+def block1_tile_plan(batch: int, hp: int, wp: int) -> tuple:
+    """bf16 K2's tiling of an input of (batch, hp, wp, 3): the (batch,
+    tiles_y, tiles_x) grid of 8x8-pooled-pixel tiles that persistent blocks
+    walk in (b, ty, tx) order; tile (ty, tx) reads input rows 16 ty .. 16 ty
+    + 19 and columns 16 tx .. 16 tx + 19, computes the 18x18 c11 pixels from
+    (16 ty, 16 tx) and stores pooled pixels (8 ty + i, 8 tx + j) inside
+    ((hp - 4) / 2, (wp - 4) / 2): K3's pool plan on the c11 it computes."""
+    return conv_tile_plan(batch, hp - 2, wp - 2)["pool"]
 
 
 def tile_row_pixels() -> torch.Tensor:

@@ -14,6 +14,20 @@ other types).
   copies nothing. fp32 inputs multiply in full fp32 (never TF32, as the
   JAX package's `highest=True` asks); bf16 products are exact in fp32, so
   `highest` is accepted and changes nothing on this card.
+* `pdot_plan` is the rule that picks the kernel's variant, by the
+  operands' shapes and 16-byte alignment, and its K splits:
+  - fp32 inputs: `fp32` (CUDA cores; when the output has fewer 64x64 tiles
+    than the card has SMs, K splits into chunks of a multiple of 16 so that
+    about twice as many blocks as SMs run, each chunk at least 64 deep);
+  - bf16, `trans_a`, N <= 24, M % 8 == 0: `narrow` (wgmma n8 / n16 /
+    n24, K in fixed 512-deep chunks);
+  - bf16 with a's and b's rows 16-byte aligned (K % 8 == 0, or M % 8 == 0
+    under `trans_a`; N % 8 == 0), 16-byte-aligned bases and M, N >= 64:
+    `tma` (TMA ring + wgmma, 128 x 256 tiles, no split);
+  - any other bf16 product: `wmma` (K splits into <= 512-deep chunks when
+    the output has fewer 128x128 tiles than SMs and K > 512).
+  Each variant has its own launch count (`pdot_<variant>`) beside the
+  total `pdot`.
 * On a CPU tensor it runs `pdot_plain`, the plain version: the fp32
   product of the inputs (bf16 inputs widened exactly), rounded once.
 """
@@ -25,7 +39,63 @@ import torch
 from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [_kernels.P] * 4 + [_kernels.I] * 7 + [_kernels.P]
+VARIANTS = {"fp32": 0, "wmma": 1, "tma": 2, "narrow": 3}
+_ARGTYPES = [_kernels.P] * 4 + [_kernels.I] * 9 + [_kernels.P]
+
+NARROW_MAX_N = 24      # the narrow variant's widest wgmma tile
+NARROW_K_CHUNK = 512   # its fixed K chunk
+TMA_MIN_MN = 64        # the tma variant's smallest M and N
+WMMA_TILE, WMMA_SPLIT_K = 128, 512
+F32_TILE, F32_MIN_CHUNK = 64, 64
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def pdot_plan(m: int, k: int, n: int, *, trans_a: bool, dtype, sms: int,
+              aligned: bool = True) -> dict:
+    """K7's variant for an (M, K) @ (K, N) product of input `dtype` on a
+    card of `sms` SMs, with `aligned` the operands' bases 16-byte aligned:
+    {"variant", "splits", "k_chunk"}, K split into `splits` chunks of
+    `k_chunk` (the last one shorter). The rule is the module note's."""
+    if dtype == torch.float32:
+        tiles = _cdiv(m, F32_TILE) * _cdiv(n, F32_TILE)
+        splits = 1 if tiles >= sms else max(1, min(
+            _cdiv(2 * sms, tiles), _cdiv(k, F32_MIN_CHUNK)))
+        chunk = _cdiv(_cdiv(k, splits), 16) * 16
+        return {"variant": "fp32", "splits": _cdiv(k, chunk),
+                "k_chunk": chunk}
+    rows_ok = aligned and (m if trans_a else k) % 8 == 0
+    if trans_a and n <= NARROW_MAX_N and rows_ok:
+        return {"variant": "narrow", "splits": _cdiv(k, NARROW_K_CHUNK),
+                "k_chunk": NARROW_K_CHUNK}
+    if rows_ok and n % 8 == 0 and min(m, n) >= TMA_MIN_MN:
+        return {"variant": "tma", "splits": 1, "k_chunk": k}
+    tiles = _cdiv(m, WMMA_TILE) * _cdiv(n, WMMA_TILE)
+    splits = 1 if tiles >= sms or k <= WMMA_SPLIT_K else _cdiv(
+        k, WMMA_SPLIT_K)
+    chunk = _cdiv(_cdiv(k, splits), 32) * 32
+    return {"variant": "wmma", "splits": _cdiv(k, chunk), "k_chunk": chunk}
+
+
+_SMS: dict[int, int] = {}
+
+
+def _sms(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def plan_for(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False
+             ) -> dict:
+    """`pdot_plan` for these CUDA operands."""
+    m, k, n, _ = _shapes(a, b, None, trans_a)
+    return pdot_plan(m, k, n, trans_a=trans_a, dtype=a.dtype,
+                     sms=_sms(a.device),
+                     aligned=a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
 
 
 def _shapes(a: torch.Tensor, b: torch.Tensor, out_dtype, trans_a: bool):
@@ -76,18 +146,17 @@ def pdot(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
         return out
     if k == 0:
         return out.zero_()
-    # the kernel splits K where the output has too few tiles for the card
-    splits = _kernels.function("pdot", "pdot_splits", [_kernels.I] * 5)(
-        m, n, k, _DTYPES[a.dtype], dev.index)
-    if splits < 0:
-        _kernels.check("pdot", -splits)
+    plan = plan_for(a, b, trans_a=trans_a)
+    splits = plan["splits"]
     ws = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
           if splits > 1 else None)
     fn = _kernels.function("pdot", "pdot_launch", _ARGTYPES)
     p = _kernels.ptr
     rc = fn(p(a), p(b), p(out), _kernels.P(0 if ws is None else ws.data_ptr()),
-            m, n, k, int(trans_a), _DTYPES[a.dtype], _DTYPES[out_dtype], splits,
+            m, n, k, int(trans_a), _DTYPES[a.dtype], _DTYPES[out_dtype],
+            VARIANTS[plan["variant"]], splits, plan["k_chunk"],
             _kernels.P(_kernels.stream_handle(dev)))
     _kernels.check("pdot", rc)
     _kernels.launch_counts["pdot"] += 1
+    _kernels.launch_counts["pdot_" + plan["variant"]] += 1
     return out
