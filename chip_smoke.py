@@ -13,7 +13,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
    per block1_train, block1_fused and pdot kernel its registers, static
    shared memory, spills and, where cuobjdump exists, its HGMMA count (each
    bf16 wgmma kernel > 0: K3/K4's four, K2's block1_fused_wgmma, K7's
-   pdot_tma and pdot_narrow instances);
+   pdot_tma and pdot_narrow instances), and the same for K5/K6's
+   instances;
 3. the SZN-labels kernel vs its plain version at the serving shapes (B=8,
    K=21, C=20, 17x17 heads, 512x512) and at the edge cases of the JAX
    package's tests (zero-norm pixels, a zeroed embedding row, all-negative
@@ -43,8 +44,11 @@ Phases, each of which passes or ends the script with a non-zero exit:
 8. the fused cosine tail (K5 forward, K6 backward) vs its plain versions at
    B=4 and at the train step's B=24, 512x512, C=20, K=21 with ignore
    labels, an all-ignore sample, a zeroed embedding row and zero-norm
-   pixels; and at the wider bundled tables, C=50 (pascal, K=21, B=24) and
-   C=300 (context, K=33, B=8);
+   pixels; at the wider bundled tables, C=50 (pascal, K=21, B=24) and
+   C=300 (context, K=33, B=8); at the odd 353x375 geometry with C=21
+   (B=2: the tensor's end a plain-load tail); and with spatially coherent
+   labels (constant over 32x32 patches, scores the target row plus noise,
+   B=4, C=20); two calls of each bit-equal;
 9. the training slice: a full-width bf16 FCN-32s (fused block 1, support
    pruning, seeded random weights) trained by make_fcn_train_step (cos
    loss, fused tail, Adam lr 1e-5, dropout 0.5 from a seeded CUDA
@@ -59,8 +63,9 @@ Phases, each of which passes or ends the script with a non-zero exit:
 10. times with CUDA events: the train step at B=24, 512x512, bf16 (the JAX
    package's bench_train configuration), its peak memory, and K3-K6 at the
    step's shapes beside their plain versions, bounds and library calls
-   (K5/K6 also at C=300, K=33), K4's route, dK2 + reduction and d(c11)
-   steps each alone;
+   (K5/K6 by CUDA events and by device time with the share of the bound
+   reached, K5 also with coherent labels, both also at C=300, K=33), K4's
+   route, dK2 + reduction and d(c11) steps each alone;
 11. the matmul kernel (K7) vs its plain version at the four products the
    dot-free model runs at B=24 (bf16 in, fp32 out) and at ragged tma
    shapes, fp32 at the fc7 shape and at the JAX tests' edge shapes vs an
@@ -834,8 +839,11 @@ def main() -> None:
         "block1_fused_wgmma", "block1_kernel"))
     k7_build = kernel_build_stats(_kernels, "pdot", (
         "pdot_tma", "pdot_narrow", "pdot_bf16", "pdot_f32", "pdot_reduce"))
+    k56_build = kernel_build_stats(_kernels, "costail_fused", (
+        "costail_fwd_regs", "costail_bwd_regs", "costail_fwd_wide",
+        "costail_bwd_wide", "costail_finalize"))
     for lib, built in (("block1_train", b1_build), ("block1_fused", k2_build),
-                       ("pdot", k7_build)):
+                       ("pdot", k7_build), ("costail_fused", k56_build)):
         for fn, st in built.items():
             log(f"[build] {lib} {fn}: {st}")
     # each bf16 wgmma kernel: HGMMA in its SASS (where cuobjdump exists)
@@ -1213,23 +1221,45 @@ def main() -> None:
     # ---- 8. fused cosine tail (K5, K6) vs plain --------------------------
     g_ssum = torch.tensor(0.37, device=dev)
     tail_errs = {}
-    # (batch, embeddings): the main path's pascal 20-dim table at B=4 and
-    # B=24, then the widths past the 32 scores a pixel keeps in registers:
-    # pascal 50-dim (K=21) and context 300-dim (K=33)
+    tail_cases = []
+
+    def tail_labels(tb, tk, th, tw, coherent):
+        """int32 labels in [-1, tk): uniform, or constant over 32x32
+        patches (spatially coherent, as real label maps are)."""
+        if not coherent:
+            return torch.randint(-1, tk, (tb, th, tw), device=dev,
+                                 dtype=torch.int32)
+        patch = torch.randint(-1, tk, (tb, th // 32 + 1, tw // 32 + 1),
+                              device=dev, dtype=torch.int32)
+        return patch.repeat_interleave(32, 1).repeat_interleave(
+            32, 2)[:, :th, :tw].contiguous()
+
+    # (batch, embeddings, H, W, coherent labels): the main path's pascal
+    # 20-dim table at B=4 and B=24; the widths past the register form's:
+    # pascal 50-dim (K=21) and context 300-dim (K=33); an odd geometry at an
+    # odd width (353x375 at C=21: the tensor's end a plain-load tail); and
+    # coherent labels with scores the target row plus noise, so that the
+    # predictions cohere too
     ctx300 = load_class_embeddings("context", 300)
-    for tb, emb in ((4, embed), (TRAIN_BATCH, embed),
-                    (TRAIN_BATCH, load_class_embeddings("pascal", 50)),
-                    (8, ctx300)):
+    for tb, emb, th, tw, coherent in (
+            (4, embed, H, W, False), (TRAIN_BATCH, embed, H, W, False),
+            (TRAIN_BATCH, load_class_embeddings("pascal", 50), H, W, False),
+            (8, ctx300, H, W, False),
+            (2, load_class_embeddings("pascal", 21), 353, 375, False),
+            (4, embed, H, W, True)):
         tk, tc = emb.shape
         temb = torch.from_numpy(emb).to(dev).clone()
         iemb = temb.clone()
         temb[0] = 0.0                         # a zeroed embedding row
         iemb[3] = 0.0
         temb_n, iemb_n = l2_normalize(temb), l2_normalize(iemb)
-        score = torch.randn(tb, H, W, tc, device=dev)
+        label = tail_labels(tb, tk, th, tw, coherent)
+        if coherent:
+            score = (temb_n[label.clamp(min=0).long()]
+                     + 0.3 * torch.randn(tb, th, tw, tc, device=dev))
+        else:
+            score = torch.randn(tb, th, tw, tc, device=dev)
         score[:, :2, :3] = 0.0                # zero-norm pixels
-        label = torch.randint(-1, tk, (tb, H, W), device=dev,
-                              dtype=torch.int32)
         label[-1] = -1                        # an all-ignore sample
         losses, hist, ssum, nv = ct.cos_tail_forward(score, label, temb_n,
                                                      iemb_n, tk)
@@ -1239,17 +1269,27 @@ def main() -> None:
         ds = ct.cos_tail_backward(score, label, temb_n, g_losses, nv, g_ssum)
         w_ds = ct.cos_tail_plain_backward(score, label, temb, iemb, tk,
                                           g_losses, g_ssum)
+        # a second call of each: bit-equal
+        again = ct.cos_tail_forward(score, label, temb_n, iemb_n, tk)
+        ds2 = ct.cos_tail_backward(score, label, temb_n, g_losses, nv,
+                                   g_ssum)
         torch.cuda.synchronize()
+        bit_equal = (all(torch.equal(a, b) for a, b in
+                         zip((losses, hist, ssum, nv), again))
+                     and torch.equal(ds, ds2))
+        del again, ds2
         k5_err = (losses - w_losses).abs().max().item()
         k6_err = (ds - w_ds).abs().max().item()
         k5_rel = ((losses - w_losses).abs()
                   / w_losses.abs().clamp(min=1e-30)).max().item()
         hflips = (hist - w_hist).abs().sum().item()
-        log(f"[K5] B={tb} {H}x{W} C={tc} K={tk}: losses max|err| "
+        name = (f"B={tb} {th}x{tw} C={tc} K={tk}"
+                + (" coherent" if coherent else ""))
+        log(f"[K5] {name}: losses max|err| "
             f"{k5_err:.3e} (max rel {k5_rel:.3e}, bar 1e-5), ssum "
             f"{ssum.item():.6e} vs {w_ssum.item():.6e}, hist flips {hflips} "
             f"of {w_hist.sum().item()}; [K6] d score max|err| {k6_err:.3e}, "
-            f"rel-norm {rel(ds, w_ds):.3e}")
+            f"rel-norm {rel(ds, w_ds):.3e}; two calls bit-equal {bit_equal}")
         require(torch.allclose(losses, w_losses, rtol=1e-5, atol=0),
                 f"K5 losses {losses.tolist()} vs {w_losses.tolist()}")
         require(losses[-1].item() == 0.0, "K5: the all-ignore sample's loss")
@@ -1262,7 +1302,11 @@ def main() -> None:
         require(torch.allclose(ds, w_ds, rtol=2e-5, atol=2e-6),
                 f"K6 d score max|err| {k6_err}")
         require(rel(ds, w_ds) < 1e-4, f"K6 d score rel {rel(ds, w_ds)}")
-        if tb == TRAIN_BATCH or tc == 300:
+        require(bit_equal, f"K5/K6 {name}: two calls differ")
+        tail_cases.append({"case": name, "k5_max_abs_err": k5_err,
+                           "k6_max_abs_err": k6_err, "hist_flips": hflips,
+                           "bit_equal": bit_equal})
+        if (tb == TRAIN_BATCH or tc == 300) and not coherent:
             tail_errs[tc] = (k5_err, k6_err)
         del score, label, ds, w_ds
 
@@ -1460,21 +1504,28 @@ def main() -> None:
     del c11, g
 
     def tail_times(emb, plain_batch):
-        """K5/K6 ms at B=24 with table `emb`, their plain versions' at
-        `plain_batch`, and their bounds at B=24."""
+        """K5/K6 at B=24 with table `emb`: event and device time, bound and
+        the share of it reached; K5 also with coherent labels; the plain
+        versions' event times at `plain_batch`."""
         tk, tc = emb.shape
         temb = torch.from_numpy(emb).to(dev)
         temb_n = l2_normalize(temb)
         score = torch.randn(TRAIN_BATCH, H, W, tc, device=dev)
-        label = torch.randint(-1, tk, (TRAIN_BATCH, H, W), device=dev,
-                              dtype=torch.int32)
+        label = tail_labels(TRAIN_BATCH, tk, H, W, False)
         _, _, _, nv = ct.cos_tail_forward(score, label, temb_n, temb_n, tk)
         g_losses = torch.randn(TRAIN_BATCH, device=dev)
         t = {"C": tc, "K": tk, "plain_batch": plain_batch}
-        t["k5_ms"] = time_ms(lambda: ct.cos_tail_forward(
-            score, label, temb_n, temb_n, tk), iters=10)
-        t["k6_ms"] = time_ms(lambda: ct.cos_tail_backward(
-            score, label, temb_n, g_losses, nv, g_ssum), iters=10)
+
+        def k5():
+            return ct.cos_tail_forward(score, label, temb_n, temb_n, tk)
+
+        def k6():
+            return ct.cos_tail_backward(score, label, temb_n, g_losses, nv,
+                                        g_ssum)
+
+        t["k5_ms"], t["k6_ms"] = time_ms(k5, iters=10), time_ms(k6, iters=10)
+        t["k5_device_ms"] = device_ms(k5, iters=10)
+        t["k6_device_ms"] = device_ms(k6, iters=10)
         pix = TRAIN_BATCH * H * W
         t["k5_bound"], t["k5_by"] = bound(
             score.numel() * 4 + label.numel() * 4 + 2 * tk * tc * 4,
@@ -1482,17 +1533,32 @@ def main() -> None:
         t["k6_bound"], t["k6_by"] = bound(
             2 * score.numel() * 4 + label.numel() * 4 + tk * tc * 4,
             pix * 9 * tc, PEAK_FP32_FLOP_S)
+        for kn in ("k5", "k6"):
+            t[f"{kn}_share"] = t[f"{kn}_bound"] / t[f"{kn}_device_ms"]
         sp, lp = score[:plain_batch], label[:plain_batch]
         t["k5_plain_ms"] = time_ms(lambda: ct.cos_tail_plain(
             sp, lp, temb, temb, tk), iters=2)
         t["k6_plain_ms"] = time_ms(lambda: ct.cos_tail_plain_backward(
             sp, lp, temb, temb, tk, g_losses[:plain_batch], g_ssum), iters=2)
-        del score, label, sp, lp
-        log(f"[times] C={tc} K={tk}: K5 {t['k5_ms']:.4f} ms (plain "
-            f"{t['k5_plain_ms']:.3f} at B={plain_batch}, bound "
-            f"{t['k5_bound']:.4f}, {t['k5_by']}); K6 {t['k6_ms']:.4f} ms "
-            f"(plain {t['k6_plain_ms']:.3f}, bound {t['k6_bound']:.4f}, "
-            f"{t['k6_by']})")
+        del sp, lp
+        # coherent labels, scores the target row plus noise (k5 reads the
+        # new score and label)
+        label = tail_labels(TRAIN_BATCH, tk, H, W, True)
+        score = (temb_n[label.clamp(min=0).long()]
+                 + 0.3 * torch.randn_like(score))
+        t["k5_coherent_ms"] = time_ms(k5, iters=10)
+        t["k5_coherent_device_ms"] = device_ms(k5, iters=10)
+        del score, label
+        log(f"[times] C={tc} K={tk}: K5 {t['k5_ms']:.4f} ms, device "
+            f"{t['k5_device_ms']:.4f} ({100 * t['k5_share']:.1f}% of the "
+            f"bound {t['k5_bound']:.4f}, {t['k5_by']}), coherent labels "
+            f"{t['k5_coherent_ms']:.4f} / device "
+            f"{t['k5_coherent_device_ms']:.4f} (plain "
+            f"{t['k5_plain_ms']:.3f} at B={plain_batch}); K6 "
+            f"{t['k6_ms']:.4f} ms, device {t['k6_device_ms']:.4f} "
+            f"({100 * t['k6_share']:.1f}% of the bound "
+            f"{t['k6_bound']:.4f}, {t['k6_by']}; plain "
+            f"{t['k6_plain_ms']:.3f})")
         return t
 
     tail20 = tail_times(embed, TRAIN_BATCH)
@@ -1727,27 +1793,47 @@ def main() -> None:
          "replaces": ref + "costail_fused.py:108",
          "launches": tlaunches["costail_fwd"],
          "max_abs_err": tail_errs[20][0], "ms": tail20["k5_ms"],
+         "device_ms": tail20["k5_device_ms"],
+         "bound_share": tail20["k5_share"],
+         "coherent_ms": tail20["k5_coherent_ms"],
+         "coherent_device_ms": tail20["k5_coherent_device_ms"],
          "plain_ms": tail20["k5_plain_ms"], "bound_ms": tail20["k5_bound"],
          "bound_by": tail20["k5_by"], "library_ms": None,
          "shape": [TRAIN_BATCH, H, W, 20, k_cls],
-         "widths_checked": [[20, 21], [50, 21], [300, 33]],
+         "widths_checked": [[20, 21], [50, 21], [300, 33], [21, 21]],
          "max_abs_err_by_width": {str(c): e[0] for c, e in tail_errs.items()},
-         "c300": {k: tail300[k] for k in ("k5_ms", "k5_plain_ms",
-                                          "k5_bound", "k5_by",
-                                          "plain_batch")}},
+         "cases": tail_cases,
+         "c300": {k: tail300[k] for k in (
+             "k5_ms", "k5_device_ms", "k5_share", "k5_coherent_ms",
+             "k5_coherent_device_ms", "k5_plain_ms", "k5_bound", "k5_by",
+             "plain_batch")},
+         "design": "persistent pipelined stream: bulk-copy (TMA) ring of "
+                   "3-4 tile stages, one mbarrier a stage; register form "
+                   "(C in 2/5/10/20/21, 2 px a thread) or wide form (8 "
+                   "lanes a pixel pair, 2 x 11 register-blocked argmax); "
+                   "warp-aggregated histogram; ordered partials",
+         "build": {k: v for k, v in k56_build.items()
+                   if k.startswith("costail_fwd") or k == "costail_finalize"}},
         {"name": "costail_backward", "route": "cuda",
          "source": src + "costail_fused.cu",
          "replaces": ref + "costail_fused.py:145",
          "launches": tlaunches["costail_bwd"],
          "max_abs_err": tail_errs[20][1], "ms": tail20["k6_ms"],
+         "device_ms": tail20["k6_device_ms"],
+         "bound_share": tail20["k6_share"],
          "plain_ms": tail20["k6_plain_ms"], "bound_ms": tail20["k6_bound"],
          "bound_by": tail20["k6_by"], "library_ms": None,
          "shape": [TRAIN_BATCH, H, W, 20, k_cls],
-         "widths_checked": [[20, 21], [50, 21], [300, 33]],
+         "widths_checked": [[20, 21], [50, 21], [300, 33], [21, 21]],
          "max_abs_err_by_width": {str(c): e[1] for c, e in tail_errs.items()},
-         "c300": {k: tail300[k] for k in ("k6_ms", "k6_plain_ms",
-                                          "k6_bound", "k6_by",
-                                          "plain_batch")}},
+         "c300": {k: tail300[k] for k in (
+             "k6_ms", "k6_device_ms", "k6_share", "k6_plain_ms", "k6_bound",
+             "k6_by", "plain_batch")},
+         "design": "the forward's ring, d score computed in place and "
+                   "stored by bulk copies (fence.proxy.async, "
+                   "wait_group.read before the stage is refilled)",
+         "build": {k: v for k, v in k56_build.items()
+                   if k.startswith("costail_bwd")}},
         {"name": "pdot", "route": "cuda", "source": src + "pdot.cu",
          "replaces": ref + "pdot.py:47",
          "launches": dlaunches["pdot"],

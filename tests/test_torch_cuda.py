@@ -223,12 +223,51 @@ def test_block1_op_under_grad_runs_k3_k4(rng, cuda):
         assert _rel(a, b) < 1e-4, (name, _rel(a, b))
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 16), (3, 37, 53), (1, 8, 8)])
-def test_cos_tail_kernels_match_plain(rng, cuda, shape):
+def _cos_tail_case(cuda, score, label, temb, iemb, n):
+    """K5 and K6 through `fused_cos_tail` vs their plain versions: one
+    launch each, the bars of tests/test_costail_fused.py, and a second call
+    bit-equal in losses, score sum, histogram and d score."""
+    b = score.shape[0]
+    s, lbl = _t(score, cuda).requires_grad_(), _t(label, cuda)
+    gw = _t(np.linspace(-1.0, 1.5, b).astype(np.float32), cuda)
+    runs = []
+    for _ in range(2):
+        before = (_kernels.launch_counts["costail_fwd"],
+                  _kernels.launch_counts["costail_bwd"])
+        losses, hist, ssum = tct.fused_cos_tail(s, lbl, temb, iemb, n)
+        ds = torch.autograd.grad((losses * gw).sum() + 0.37 * ssum, s)[0]
+        assert (_kernels.launch_counts["costail_fwd"],
+                _kernels.launch_counts["costail_bwd"]) == (before[0] + 1,
+                                                           before[1] + 1)
+        runs.append((losses.detach(), hist, ssum.detach(), ds))
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+    losses, hist, ssum, ds = runs[0]
+    te, ie = torch.from_numpy(temb).to(cuda), torch.from_numpy(iemb).to(cuda)
+    w_losses, w_hist, w_ssum = tct.cos_tail_plain(s.detach(), lbl, te, ie, n)
+    w_ds = tct.cos_tail_plain_backward(s.detach(), lbl, te, ie, n, gw,
+                                       torch.tensor(0.37, device=cuda))
+    torch.testing.assert_close(losses, w_losses, rtol=1e-5, atol=2e-6)
+    torch.testing.assert_close(ssum, w_ssum, rtol=1e-5,
+                               atol=1e-7 * float(np.abs(score).sum()))
+    hg, hw_ = hist.cpu().numpy(), w_hist.cpu().numpy()
+    np.testing.assert_array_equal(hg.sum(axis=1), hw_.sum(axis=1))
+    assert np.abs(hg - hw_).sum() <= max(16, 0.005 * hw_.sum())
+    torch.testing.assert_close(ds, w_ds, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("shape,c", [((2, 16, 16), 20), ((3, 37, 53), 20),
+                                     ((1, 8, 8), 20), ((2, 353, 375), 21),
+                                     ((2, 353, 375), 5), ((1, 3, 5), 20),
+                                     ((1, 3, 5), 300), ((3, 9, 7), 50)])
+def test_cos_tail_kernels_match_plain(rng, cuda, shape, c):
     """K5 and K6 vs their plain versions with ignore labels, a zeroed
-    embedding row, zero-norm pixels and an all-ignore sample."""
+    embedding row, zero-norm pixels and an all-ignore sample; at odd H*W
+    with odd C (353x375 at C=21 and C=5: a sample's base off 16-byte
+    alignment, the tensor's end a plain-load tail) and with fewer pixels
+    than one tile. Launch counts one a call, two calls bit-equal."""
     b, h, w = shape
-    c, n = 20, 21
+    n = 21
     score = rng.randn(b, h, w, c).astype(np.float32)
     score[:, :2, :3] = 0.0
     label = rng.randint(-1, n, (b, h, w)).astype(np.int32)
@@ -238,37 +277,19 @@ def test_cos_tail_kernels_match_plain(rng, cuda, shape):
     iemb = rng.randn(n, c).astype(np.float32)
     temb[0] = 0.0
     iemb[3] = 0.0
-    s, lbl = _t(score, cuda).requires_grad_(), _t(label, cuda)
-    gw = _t(rng.randn(b).astype(np.float32), cuda)
-    before = (_kernels.launch_counts["costail_fwd"],
-              _kernels.launch_counts["costail_bwd"])
-    losses, hist, ssum = tct.fused_cos_tail(s, lbl, temb, iemb, n)
-    ds = torch.autograd.grad((losses * gw).sum() + 0.37 * ssum, s)[0]
-    assert (_kernels.launch_counts["costail_fwd"],
-            _kernels.launch_counts["costail_bwd"]) == (before[0] + 1,
-                                                       before[1] + 1)
-    te, ie = torch.from_numpy(temb).to(cuda), torch.from_numpy(iemb).to(cuda)
-    w_losses, w_hist, w_ssum = tct.cos_tail_plain(s.detach(), lbl, te, ie, n)
-    w_ds = tct.cos_tail_plain_backward(s.detach(), lbl, te, ie, n, gw,
-                                       torch.tensor(0.37, device=cuda))
-    torch.testing.assert_close(losses, w_losses, rtol=1e-5, atol=2e-6)
-    torch.testing.assert_close(ssum, w_ssum, rtol=1e-5,
-                               atol=1e-7 * float(np.abs(score).sum()))
-    hg, hw_ = hist.cpu().numpy(), w_hist.cpu().numpy()
-    np.testing.assert_array_equal(hg.sum(axis=1), hw_.sum(axis=1))
-    assert np.abs(hg - hw_).sum() <= max(16, 0.005 * hw_.sum())
-    torch.testing.assert_close(ds, w_ds, rtol=2e-5, atol=2e-6)
+    _cos_tail_case(cuda, score, label, temb, iemb, n)
 
 
 @pytest.mark.parametrize("c,n", [(50, 21), (300, 33), (2, 33), (21, 21),
-                                 (33, 33), (59, 59), (100, 21), (200, 33)])
+                                 (33, 33), (59, 59), (100, 21), (200, 33),
+                                 (5, 21), (10, 21), (20, 33)])
 def test_cos_tail_kernel_limits(rng, cuda, c, n):
     """K5 and K6 at every bundled width: the word2vec tables (2 to 300
     dims) with pascal's K=21 and context's K=33 classes, and the one-hot
-    tables (21, 33, 59 dims). Past the 32 scores a pixel keeps in
-    registers, the scores stay in the staged shared-memory tile, 8 lanes
-    share a pixel, the tile shrinks to fit and the launch opts in past 48
-    KB. Same bars as C=20."""
+    tables (21, 33, 59 dims). C in {2, 5, 10, 20, 21} takes the register
+    form, every other C the wide form (8 lanes a pixel pair, tiles sized
+    to fit 3-4 stages beside the tables, the launch opted in past 48 KB).
+    Same bars as C=20."""
     b, h, w = 2, 37, 53
     score = rng.randn(b, h, w, c).astype(np.float32)
     score[:, :2, :3] = 0.0
@@ -277,21 +298,23 @@ def test_cos_tail_kernel_limits(rng, cuda, c, n):
     temb = rng.randn(n, c).astype(np.float32)
     iemb = rng.randn(n, c).astype(np.float32)
     temb[0] = 0.0
-    s, lbl = _t(score, cuda).requires_grad_(), _t(label, cuda)
-    gw = _t(rng.randn(b).astype(np.float32), cuda)
-    losses, hist, ssum = tct.fused_cos_tail(s, lbl, temb, iemb, n)
-    ds = torch.autograd.grad((losses * gw).sum() + 0.37 * ssum, s)[0]
-    te, ie = torch.from_numpy(temb).to(cuda), torch.from_numpy(iemb).to(cuda)
-    w_losses, w_hist, w_ssum = tct.cos_tail_plain(s.detach(), lbl, te, ie, n)
-    w_ds = tct.cos_tail_plain_backward(s.detach(), lbl, te, ie, n, gw,
-                                       torch.tensor(0.37, device=cuda))
-    torch.testing.assert_close(losses, w_losses, rtol=1e-5, atol=2e-6)
-    torch.testing.assert_close(ssum, w_ssum, rtol=1e-5,
-                               atol=1e-7 * float(np.abs(score).sum()))
-    hg, hw_ = hist.cpu().numpy(), w_hist.cpu().numpy()
-    np.testing.assert_array_equal(hg.sum(axis=1), hw_.sum(axis=1))
-    assert np.abs(hg - hw_).sum() <= max(16, 0.005 * hw_.sum())
-    torch.testing.assert_close(ds, w_ds, rtol=2e-5, atol=2e-6)
+    _cos_tail_case(cuda, score, label, temb, iemb, n)
+
+
+@pytest.mark.parametrize("c,n", [(20, 21), (300, 33)])
+def test_cos_tail_coherent_labels(rng, cuda, c, n):
+    """Spatially coherent labels, constant over 32x32 patches, with scores
+    the target row plus noise, so that the predictions cohere too: a warp's
+    histogram counts fall in one bin. Same bars, bit-equal repeats."""
+    b, h, w = 2, 96, 80
+    patch = rng.randint(-1, n, (b, h // 32 + 1, w // 32 + 1))
+    label = np.repeat(np.repeat(patch, 32, 1), 32, 2)[:, :h, :w]
+    label = label.astype(np.int32)
+    temb = rng.randn(n, c).astype(np.float32)
+    temb /= np.linalg.norm(temb, axis=1, keepdims=True)
+    score = (temb[np.clip(label, 0, None)]
+             + 0.3 * rng.randn(b, h, w, c)).astype(np.float32)
+    _cos_tail_case(cuda, score, label, temb, temb.copy(), n)
 
 
 def test_szn_kernel_limits(cuda):
