@@ -319,18 +319,90 @@ def test_cos_tail_coherent_labels(rng, cuda, c, n):
 
 def test_szn_kernel_limits(cuda):
     """The SZN-labels kernel sizes its shared memory itself ((K+1) x w32
-    fp32 rows): a row past the card's per-block limit is refused at
-    launch and the wrapper raises."""
+    fp32 rows, two buffers where they fit): a row past the card's
+    per-block limit is refused at launch and the wrapper raises."""
     aug = torch.zeros(1, 2, 1000, 60, device=cuda)
-    parts = tsz._partition(torch.ones(59, dtype=torch.bool, device=cuda),
-                           torch.zeros(59, dtype=torch.bool, device=cuda))
+    parts = tsz._partition(np.ones(59, bool), np.zeros(59, bool))
     with pytest.raises(RuntimeError, match="CUDA error"):
         tsz.szn_labels(aug, *parts, 64, 64)
-    # past 48 KB it opts in: (K+1) x w32 = 60 x 300 fp32 is 72 KB
+    # past 48 KB it opts in: (K+1) x w32 = 60 x 300 fp32 is 72 KB a row
     aug = torch.randn(1, 2, 300, 60, device=cuda)
     got = tsz.szn_labels(aug, *parts, 40, 9000)
     want = tsz.szn_labels_plain(aug, *parts, 40, 9000)
     assert (got != want).float().mean().item() < 1e-4
+
+
+def _tie_heavy_aug(rng, k, cuda):
+    """(2, 4, 5, K+1) on a 1/8 grid (every upsampled value exact in fp32):
+    duplicated classes, an all-zero class, exact-zero gates."""
+    aug = rng.randint(-4, 5, (2, 4, 5, k + 1)).astype(np.float32) / 8
+    aug[..., 3] = aug[..., 1]
+    aug[..., k - 1] = aug[..., 0]
+    aug[..., 2] = 0.0
+    aug[0, 1, :, k] = 0.0
+    return _t(aug, cuda)
+
+
+@pytest.mark.parametrize("k", [9, 21, 33, 70])
+@pytest.mark.parametrize("unseen", [[1, 5], [], "all"])
+def test_szn_kernel_ties_equal_plain(rng, cuda, k, unseen):
+    """K1 on tie-heavy inputs (exact ties between classes, with the 0.0
+    fill and at gate 0; all classes negative; an empty partition) equals
+    its plain version exactly, at the unrolled widths (K+1 = 22, 34) and
+    the generic one (10; 71, two mask words); two calls bit-equal."""
+    uv = np.ones(k, bool) if unseen == "all" else np.isin(np.arange(k),
+                                                          unseen)
+    parts = tsz._partition(~uv, uv)
+    for aug in (_tie_heavy_aug(rng, k, cuda),
+                -_tie_heavy_aug(rng, k, cuda).abs() - 0.125):
+        before = _kernels.launch_counts["szn_fused"]
+        got = tsz.szn_labels(aug, *parts, 70, 90)
+        again = tsz.szn_labels(aug, *parts, 70, 90)
+        assert _kernels.launch_counts["szn_fused"] == before + 2
+        want = tsz.szn_labels_plain(aug, *parts, 70, 90)
+        assert torch.equal(got, want)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("small,out", [((17, 17), (512, 512)),
+                                       ((12, 16), (375, 500)),
+                                       ((2, 3), (33, 70))])
+def test_szn_kernel_context_width(rng, cuda, small, out):
+    """K1 at the context width (K = 33, C = 300 embeddings) vs its plain
+    version: flips < 1e-4; two calls bit-equal."""
+    k, c = 33, 300
+    score = _t(rng.randn(2, *small, c).astype(np.float32), cuda)
+    sm = _t(rng.randn(*score.shape[:3], 2).astype(np.float32), cuda)
+    embed = rng.randn(k, c).astype(np.float32)
+    uv = unseen_mask_vector(k, [2, 9, 30])
+    got = tsz.infer_labels_szn_fused(score, sm, embed, uv, out)
+    again = tsz.infer_labels_szn_fused(score, sm, embed, uv, out)
+    with_plain = tsz.szn_labels
+    try:
+        tsz.szn_labels = tsz.szn_labels_plain
+        want = tsz.infer_labels_szn_fused(score, sm, embed, uv, out)
+    finally:
+        tsz.szn_labels = with_plain
+    assert torch.equal(got, again)
+    assert (got != want).float().mean().item() < 1e-4
+
+
+def test_szn_kernel_refuses_malformed_partition(cuda):
+    """The wrapper reads the partition on the host: a CUDA mask, a class in
+    both partitions or a mask of another width raises before any launch."""
+    aug = torch.randn(1, 2, 3, 10, device=cuda)
+    seen, unseen, fill = tsz._partition(np.ones(9, bool), np.zeros(9, bool))
+    before = _kernels.launch_counts["szn_fused"]
+    with pytest.raises(ValueError, match="host data"):
+        tsz.szn_labels(aug, torch.from_numpy(np.array(seen)).to(cuda),
+                       unseen, fill, 64, 64)
+    both = np.array(unseen)
+    both[0] = 1
+    with pytest.raises(ValueError, match="partition"):
+        tsz.szn_labels(aug, seen, both, fill, 64, 64)
+    with pytest.raises(ValueError, match="rows"):
+        tsz.szn_labels(aug[..., :9].contiguous(), seen, unseen, fill, 64, 64)
+    assert _kernels.launch_counts["szn_fused"] == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -430,24 +502,62 @@ def test_dot_free_conv_matches_default(rng, cuda, name):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hw", [(38, 42), (66, 34), (4, 132)])
 def test_conv1_1_kernel_matches_plain(rng, cuda, dtype, hw):
-    """K8 vs its plain version: fp32 max |err| <= 1e-5; bf16 within
-    2^-8 max(|a|, |b|) + 1e-6 (the products of bf16 values are exact in
-    fp32 and both add the taps in one order, so they agree bit for bit)."""
+    """K8 vs its plain version: fp32 max |err| <= 1e-5; bf16 (`wgmma`, its
+    own order of the fp32 sums) within one bf16 ulp, 2^-7 max(|a|, |b|) +
+    1e-6 elementwise, with at most 1e-3 of the elements differing, and at
+    most 2x as far from an fp32 conv1_1 of the same rounded inputs (TF32
+    off) as the plain version; two calls bit-equal."""
     xp = _t(rng.randn(2, *hw, 3).astype(np.float32), cuda)
     k1 = _t(rng.randn(64, 3, 3, 3).astype(np.float32) * 0.2, cuda)
     b1 = _t(rng.randn(64).astype(np.float32) * 0.1, cuda)
     before = _kernels.launch_counts["conv1_1_pairs"]
     got = tb1.conv1_1_pairs(xp, k1, b1, dtype)
-    assert _kernels.launch_counts["conv1_1_pairs"] == before + 1
+    again = tb1.conv1_1_pairs(xp, k1, b1, dtype)
+    assert _kernels.launch_counts["conv1_1_pairs"] == before + 2
     want = tb1.conv1_1_pairs_plain(xp, k1, b1, dtype)
     assert got.shape == want.shape == (2, hw[0] - 2, (hw[1] - 2) // 2, 128)
     assert got.dtype == dtype
+    assert torch.equal(got, again)
     a, b = got.float(), want.float()
     if dtype == torch.float32:
         assert (a - b).abs().max().item() <= 1e-5
-    else:
-        bar = 2.0 ** -8 * torch.maximum(a.abs(), b.abs()) + 1e-6
-        assert bool(((a - b).abs() <= bar).all())
+        return
+    bar = 2.0 ** -7 * torch.maximum(a.abs(), b.abs()) + 1e-6
+    assert bool(((a - b).abs() <= bar).all())
+    assert (a != b).float().mean().item() <= 1e-3
+    x = xp.to(dtype).float().permute(0, 3, 1, 2)
+    ref = torch.relu(torch.nn.functional.conv2d(x, k1.to(dtype).float(), b1))
+    ref = ref.permute(0, 2, 3, 1).reshape(a.shape)
+    scale = ref.abs().max()
+    err_k = ((a - ref).abs().max() / scale).item()
+    err_p = ((b - ref).abs().max() / scale).item()
+    assert err_k <= 2 * err_p, (err_k, err_p)
+
+
+def test_conv1_1_kernel_refuses_other_tile_plan(cuda, monkeypatch):
+    """bf16 K8 runs only the tile plan it was built for: the wrapper passes
+    `c11_tile_plan`'s tile and shared memory, and the kernel refuses any
+    other (the wrapper raises)."""
+    plan = tb1.c11_tile_plan(2, 38, 42)
+    monkeypatch.setattr(tb1, "c11_tile_plan",
+                        lambda *a: {**plan, "tile_m": 2 * plan["tile_m"]})
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tb1.conv1_1_pairs(torch.zeros(2, 38, 42, 3, device=cuda),
+                          torch.zeros(64, 3, 3, 3, device=cuda),
+                          torch.zeros(64, device=cuda), torch.bfloat16)
+
+
+@pytest.mark.parametrize("change", [{"u0": 0}, {"gate": 2}, {"u0": 21}])
+def test_szn_kernel_refuses_overlapping_layout(cuda, monkeypatch, change):
+    """K1 takes its layout from `k1_plan` and checks only that it keeps
+    the kernel in bounds: overlapping ranges, or an unrolled instance's
+    range off a 4-float boundary, are refused at launch."""
+    plan = tsz.k1_plan
+    monkeypatch.setattr(tsz, "k1_plan", lambda *a: {**plan(*a), **change})
+    uv = np.isin(np.arange(21), [1, 13])
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tsz.szn_labels(torch.zeros(1, 17, 17, 22, device=cuda),
+                       *tsz._partition(~uv, uv), 64, 64)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -116,7 +116,7 @@ def test_probe_kernel_bodies_unchanged(body, copy):
 @pytest.mark.parametrize("script", ["torch_probe_h2d.py",
                                     "torch_bench_block1.py",
                                     "torch_serving_bar.py",
-                                    "torch_costail_times.py"])
+                                    "torch_kernel_times.py"])
 def test_gpu_scripts_refuse_without_a_card(script):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the script would run")

@@ -22,8 +22,9 @@
   dK2 chunking for the CPU tests. fp32 runs the CUDA-core kernels.
 
 `conv1_1_pairs` is conv1_1 + bias + ReLU on its own, the port of the JAX
-package's `conv1_1_pairs` (K8, `csrc/conv1_1.cu`; its plain version
-`conv1_1_pairs_plain` runs on a CPU tensor). No model path calls it, as in
+package's `conv1_1_pairs` (K8, `csrc/conv1_1.cu`: bf16 a K = 32 `wgmma`
+product with TMA stores, tiled as `c11_tile_plan` says; fp32 on the CUDA
+cores; its plain version `conv1_1_pairs_plain` runs on a CPU tensor). No model path calls it, as in
 the JAX package: the block-1 bench (`scripts/torch_bench_block1.py`) feeds
 it to K3.
 
@@ -43,8 +44,10 @@ from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = [_kernels.P] * 6 + [_kernels.I] * 4 + [_kernels.P]
-# K3's and K8's entry points: four pointers, four ints, the stream
+# K3's entry point: four pointers, four ints, the stream; K8's also takes
+# its tile plan's two ints
 _FWD_ARGTYPES = [_kernels.P] * 4 + [_kernels.I] * 4 + [_kernels.P]
+_C11_ARGTYPES = [_kernels.P] * 4 + [_kernels.I] * 6 + [_kernels.P]
 _BWD_ARGTYPES = [_kernels.P] * 11 + [_kernels.I] * 6 + [_kernels.P]
 
 
@@ -394,8 +397,9 @@ def conv1_1_pairs_plain(xp, k1, b1, dtype=torch.bfloat16) -> torch.Tensor:
     """Plain version of K8 with the JAX kernel's rounding points: xp and k1
     rounded to `dtype`, the 27 products summed in fp32, + b1 in fp32, ReLU,
     one rounding to `dtype`; in the packed-pair shape. The taps are added
-    in K8's order (kh, ci, kw), so for bf16 inputs, whose products are
-    exact in fp32, the kernel and this version agree bit for bit."""
+    in the order (kh, ci, kw), as fp32 K8 adds them; bf16 K8 sums on the
+    tensor cores in their own order, so a bf16 result may sit one bf16 ulp
+    away where the fp32 sums fall on two sides of a rounding boundary."""
     _check_pairs_geometry(xp)
     x = xp.to(dtype).to(torch.float32)
     w = k1.to(dtype).to(torch.float32)
@@ -410,12 +414,32 @@ def conv1_1_pairs_plain(xp, k1, b1, dtype=torch.bfloat16) -> torch.Tensor:
     return _pairs(torch.relu(acc + b1.to(torch.float32)).to(dtype))
 
 
+# bf16 K8's tiling, passed to the kernel, which refuses any other
+C11_TILE_M = 128          # output pixels a tile
+C11_STAGE_BYTES = C11_TILE_M * 64 * 2    # one staging buffer
+C11_WGMMA_SMEM = 1024 + 2 * C11_STAGE_BYTES + 2 * 2048   # + packed B
+
+
+def c11_tile_plan(batch: int, hp: int, wp: int) -> dict:
+    """bf16 K8's tiling of an input of (batch, hp, wp, 3): `tiles` tiles of
+    C11_TILE_M consecutive output pixels of the flattened (b, y, x) axis of
+    M = batch (hp - 2) (wp - 2) pixels, the last clipped at M; tile t's
+    pixels are C11_TILE_M t .. C11_TILE_M (t + 1) - 1. `smem` is the shared
+    memory a block takes: two staging buffers on a 1024-byte aligned base
+    and conv1_1's 4 KB packed B. `conv1_1_pairs` passes `tile_m` and
+    `smem` to the kernel, which refuses a plan that is not its own."""
+    m = batch * (hp - 2) * (wp - 2)
+    return {"pixels": m, "tile_m": C11_TILE_M,
+            "tiles": -(-m // C11_TILE_M), "smem": C11_WGMMA_SMEM}
+
+
 def conv1_1_pairs(xp, k1, b1, dtype=torch.bfloat16) -> torch.Tensor:
     """conv1_1 (3 -> 64, 3x3 VALID) + b1 + ReLU in the JAX op's packed-pair
     shape (B, Hp-2, (Wp-2)/2, 128); `.view(B, Hp-2, Wp-2, 64)` gives the
     NHWC activation K3 reads. xp (B, Hp, Wp, 3), Hp and Wp even; k1 (64, 3,
-    3, 3) OIHW; b1 (64,). K8 on a CUDA tensor, the plain version on a CPU
-    tensor."""
+    3, 3) OIHW; b1 (64,). K8 on a CUDA tensor (bf16 on `wgmma`,
+    `conv1_1_wgmma`, tiled as `c11_tile_plan` says; fp32 on the CUDA
+    cores), the plain version on a CPU tensor."""
     if not xp.is_cuda:
         return conv1_1_pairs_plain(xp, k1, b1, dtype)
     _check_pairs_geometry(xp)
@@ -429,15 +453,21 @@ def conv1_1_pairs(xp, k1, b1, dtype=torch.bfloat16) -> torch.Tensor:
                              f"{shape} on {dev}")
     x = xp.to(dtype).contiguous()
     b, hp, wp, _ = x.shape
-    k1h = k1.to(dtype).to(torch.float32).permute(2, 3, 1, 0).contiguous()
+    tile_m = smem = 0
+    if dtype == torch.bfloat16:  # conv1_1's packed wgmma image, as K2's
+        k1h = pack_conv_weights(conv1_1_b_matrix(k1.to(dtype))[None])
+        plan = c11_tile_plan(b, hp, wp)
+        tile_m, smem = plan["tile_m"], plan["smem"]
+    else:
+        k1h = k1.to(torch.float32).permute(2, 3, 1, 0).contiguous()  # HWIO
     b1f = b1.to(torch.float32).contiguous()
     out = torch.empty((b, hp - 2, wp - 2, 64), dtype=dtype, device=dev)
     if b == 0:
         return _pairs(out)
-    fn = _kernels.function("conv1_1", "conv1_1_forward", _FWD_ARGTYPES)
+    fn = _kernels.function("conv1_1", "conv1_1_forward", _C11_ARGTYPES)
     p = _kernels.ptr
     rc = fn(p(x), p(k1h), p(b1f), p(out), b, hp, wp, _DTYPE_CODES[dtype],
-            _kernels.P(_kernels.stream_handle(dev)))
+            tile_m, smem, _kernels.P(_kernels.stream_handle(dev)))
     _kernels.check("conv1_1", rc)
     _kernels.launch_counts["conv1_1_pairs"] += 1
     return _pairs(out)

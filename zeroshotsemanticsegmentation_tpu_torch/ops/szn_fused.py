@@ -18,6 +18,12 @@ likewise: sign(upsample(s0 - s1)) decides the seenmask argmax. So:
      to the output size and takes the masked seen/unseen first-max argmaxes
      (fill 0.0 for excluded classes, -1e30 for the gate row) and the gate
      select, emitting int32 labels.
+
+The partition (`_partition`) is host data, made once per class mask; the
+kernel takes it as a bit mask of the seen classes (`kernel_partition`,
+checked on the host)
+and its launch plan from `k1_plan`, so a request copies nothing from host
+memory.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import functools
 import numpy as np
 import torch
 
+from zeroshotsemanticsegmentation_tpu_torch import device_const
 from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
 from zeroshotsemanticsegmentation_tpu_torch.ops.bilinear import (
     upsample_matrix)
@@ -36,7 +43,16 @@ _UPSAMPLE_KERNEL = 64
 _CROP_OFFSET = 19
 _GATE_FILL = -1e30
 
-_ARGTYPES = [_kernels.P] * 9 + [_kernels.I] * 6 + [_kernels.P]
+_ARGTYPES = [_kernels.P] * 7 + [_kernels.I] * 14 + [_kernels.P]
+
+# K1's launch plan, defined by `k1_plan` alone: the kernel takes the
+# instance, the layout and the band height as launch arguments
+K1_THREADS = 128        # threads a block, 4 warps
+K1_RUN = 4              # output columns a thread
+K1_ROWS = (8, 4, 2, 1)  # output rows a band: the most whose rows fit
+K1_INSTANCES = (22, 34)  # K+1 of the unrolled instances (pascal, context)
+K1_MASK_WORDS = 64      # 64-bit words of the seen mask: 4096 real classes
+K1_SMEM_LIMIT = 232448  # shared memory a block may opt into on an H100
 
 
 def _matrix(in_len: int, out_len: int, device) -> torch.Tensor:
@@ -46,10 +62,12 @@ def _matrix(in_len: int, out_len: int, device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=64)
-def _taps(in_len: int, out_len: int, device: str):
+def _tap_table(in_len: int, out_len: int):
     """The interpolation matrix as a 2-tap table: first input index (int32,
-    (out_len,)) and the two weights (fp32, (2, out_len)), on `device`.
-    Raises if a row has taps that are not two adjacent entries."""
+    (out_len,)) and the two weights (fp32, (2, out_len)), numpy. Raises if a
+    row has taps that are not two adjacent entries, or if a run of K1_RUN
+    output coordinates (K1's register block) spans more than two first
+    indices (three tap columns)."""
     m = upsample_matrix(in_len, _UPSAMPLE_STRIDE, _UPSAMPLE_KERNEL,
                         _CROP_OFFSET, out_len)
     nz = m != 0
@@ -65,30 +83,151 @@ def _taps(in_len: int, out_len: int, device: str):
     if not np.array_equal(recon, m):
         raise ValueError("upsample matrix has more than two adjacent taps "
                          f"per row (in_len={in_len}, out_len={out_len})")
-    return (torch.from_numpy(i0.astype(np.int32)).to(device),
-            torch.from_numpy(w).to(device))
+    runs = np.pad(i0, (0, -out_len % K1_RUN), mode="edge").reshape(
+        -1, K1_RUN)
+    if np.any(runs - runs[:, :1] > 1) or np.any(np.diff(i0) < 0):
+        raise ValueError(f"a run of {K1_RUN} output coordinates needs more "
+                         f"than three tap columns (in_len={in_len}, "
+                         f"out_len={out_len})")
+    return i0.astype(np.int32), w
 
 
-def szn_labels_plain(aug: torch.Tensor, seen: torch.Tensor,
-                     unseen: torch.Tensor, fill: torch.Tensor,
-                     out_h: int, out_w: int) -> torch.Tensor:
+def _taps(in_len: int, out_len: int, device):
+    """`_tap_table` on `device`, copied there once."""
+    i0, w = _tap_table(in_len, out_len)
+    return (device_const(("szn_taps_i0", in_len, out_len), lambda: i0,
+                         device),
+            device_const(("szn_taps_w", in_len, out_len), lambda: w, device))
+
+
+def k1_plan(batch: int, h32: int, w32: int, kp1: int, out_h: int,
+            out_w: int, n_seen: int) -> dict:
+    """K1's launch plan for a partition of the K = kp1 - 1 real classes with
+    `n_seen` seen: the kernel instance (22 or 34 unrolled, 0 generic); the
+    blended row's layout, each tap column `stride` floats holding the seen
+    classes from position 0, the unseen ones from `u0`, the gate at `gate`
+    (the unrolled instances pad each partition to a multiple of 4 positions
+    for 16-byte loads and give the gate a group of its own); `rows`, the
+    output rows of a band, the most of 8, 4, 2, 1 whose blended rows fit
+    beside the position tables; the shared memory in bytes; and the grid:
+    block `i` takes image i // bands, rows `rows` (i % bands) .. + rows
+    (clipped at out_h); within a band, warp w takes tiles w, w + 4, .. of
+    `rows` rows x 32 / rows runs of K1_RUN columns (clipped at out_w). A
+    plan whose `smem` is past the card's limit is refused at launch."""
+    k, n_unseen = kp1 - 1, kp1 - 1 - n_seen
+
+    def layout(padded):
+        if padded:
+            u0 = 4 * -(-n_seen // 4)
+            gate = u0 + 4 * -(-n_unseen // 4)
+            return u0, gate, gate + 4
+        return n_seen, k, kp1
+
+    instance = kp1 if kp1 in K1_INSTANCES else 0
+    u0, gate, stride = layout(instance)
+    tables = 4 * (kp1 + stride)
+    if instance and 4 * w32 * stride + tables > K1_SMEM_LIMIT:
+        instance = 0
+        u0, gate, stride = layout(False)
+        tables = 4 * (kp1 + stride)
+    rows = next((r for r in K1_ROWS
+                 if 4 * r * w32 * stride + tables <= K1_SMEM_LIMIT), 1)
+    bands = -(-out_h // rows)
+    cols = 32 // rows
+    return {"instance": instance, "stride": stride, "u0": u0, "gate": gate,
+            "rows": rows, "smem": 4 * rows * w32 * stride + tables,
+            "bands": bands, "grid": batch * bands, "threads": K1_THREADS,
+            "tile": (rows, cols), "tiles": -(-out_w // (K1_RUN * cols))}
+
+
+def _host(a, dtype, name: str) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        if a.device.type != "cpu":
+            raise ValueError(f"szn_labels: {name} must be host data (numpy "
+                             f"or a CPU tensor), got a tensor on {a.device}: "
+                             "the kernel reads its partition on the host")
+        a = a.numpy()
+    return np.asarray(a, dtype=dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _kernel_partition_cached(seen: bytes, unseen: bytes, fill: bytes):
+    s = np.frombuffer(seen, np.int32) != 0
+    u = np.frombuffer(unseen, np.int32) != 0
+    f = np.frombuffer(fill, np.float32)
+    k = s.shape[0] - 1
+    if (k < 0 or u.shape != s.shape or f.shape != s.shape or s[k] or u[k]
+            or f[k] != np.float32(_GATE_FILL) or np.any(f[:k] != 0.0)
+            or np.any(s[:k] == u[:k])):
+        raise ValueError(
+            "szn_labels: the kernel takes a partition of the K real classes "
+            "into seen and unseen (each class in exactly one) with fill 0.0, "
+            "and the gate row K last in neither with fill -1e30, as "
+            "`_partition` builds it")
+    if k > 64 * K1_MASK_WORDS:
+        raise ValueError(f"szn_labels: {k} classes, the kernel takes at "
+                         f"most {64 * K1_MASK_WORDS}")
+    words = np.zeros(K1_MASK_WORDS, np.uint64)
+    idx = np.flatnonzero(s[:k])
+    np.bitwise_or.at(words, idx // 64, np.left_shift(
+        np.uint64(1), (idx % 64).astype(np.uint64)))
+    # each partition's first excluded real class (the other partition's
+    # first member), -1 for none
+    fx = [int(np.argmax(~m[:k])) if np.any(~m[:k]) else -1 for m in (s, u)]
+    return words, len(idx), fx[0], fx[1]
+
+
+def kernel_partition(seen, unseen, fill):
+    """The host check and form of K1's partition: raises unless every real
+    class k < K is in exactly one of `seen` and `unseen` with fill 0.0 and
+    the gate row K is in neither with fill -1e30 (what `_partition`
+    builds). Returns the kernel's form: the seen mask (K1_MASK_WORDS
+    uint64 words, bit k % 64 of word k // 64; every other real class is
+    unseen), the number of seen classes and each partition's first
+    excluded real class (-1 for none). Cached on the masks' bytes."""
+    return _kernel_partition_cached(
+        _host(seen, np.int32, "seen").tobytes(),
+        _host(unseen, np.int32, "unseen").tobytes(),
+        _host(fill, np.float32, "fill").tobytes())
+
+
+def _on(a, dtype, device) -> torch.Tensor:
+    """A partition array as a tensor on `device`; host data is copied there
+    once per content."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    a = np.ascontiguousarray(a, dtype=torch.empty((), dtype=dtype).numpy()
+                             .dtype)
+    return device_const(("szn_partition", a.dtype.str, a.tobytes()),
+                        a.copy, device)
+
+
+def szn_labels_plain(aug: torch.Tensor, seen, unseen, fill, out_h: int,
+                     out_w: int) -> torch.Tensor:
     """Plain version of the kernel: interpolation-matrix upsample of every
     row of `aug` (B, h32, w32, K+1) to (B, out_h, out_w, K+1) in fp32,
-    masked first-max argmaxes, gate select -> (B, out_h, out_w) int32."""
+    masked first-max argmaxes (`seen`, `unseen`, `fill` over K+1 rows,
+    host data or tensors), gate select -> (B, out_h, out_w) int32."""
     _, h32, w32, _ = aug.shape
-    up = torch.einsum("oh,bhwk->bowk", _matrix(h32, out_h, aug.device), aug)
-    up = torch.einsum("pw,bowk->bopk", _matrix(w32, out_w, aug.device), up)
+    dev = aug.device
+    seen, unseen = _on(seen, torch.int32, dev), _on(unseen, torch.int32, dev)
+    fill = _on(fill, torch.float32, dev)
+    up = torch.einsum("oh,bhwk->bowk", _matrix(h32, out_h, dev), aug)
+    up = torch.einsum("pw,bowk->bopk", _matrix(w32, out_w, dev), up)
     seen_arg = torch.argmax(torch.where(seen != 0, up, fill), dim=-1)
     unseen_arg = torch.argmax(torch.where(unseen != 0, up, fill), dim=-1)
     return torch.where(up[..., -1] >= 0, unseen_arg, seen_arg).to(
         torch.int32)
 
 
-def szn_labels(aug: torch.Tensor, seen: torch.Tensor, unseen: torch.Tensor,
-               fill: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+def szn_labels(aug: torch.Tensor, seen, unseen, fill, out_h: int,
+               out_w: int) -> torch.Tensor:
     """Kernel wrapper: launches `csrc/szn_fused.cu` on a CUDA tensor; a CPU
-    tensor takes `szn_labels_plain`. The kernel sizes its own shared memory
-    and refuses a shape past the card's limits (the check raises)."""
+    tensor takes `szn_labels_plain`. `seen`, `unseen` and `fill` are host
+    data (numpy or CPU tensors, as `_partition` returns them): the wrapper
+    checks their form on the host (`kernel_partition`) and raises on any
+    other form or on a CUDA tensor. The plan comes from `k1_plan`; the
+    kernel refuses a plan past the card's limits (the check raises)."""
     if not aug.is_cuda:
         return szn_labels_plain(aug, seen, unseen, fill, out_h, out_w)
     if aug.dim() != 4 or aug.dtype != torch.float32 \
@@ -97,23 +236,24 @@ def szn_labels(aug: torch.Tensor, seen: torch.Tensor, unseen: torch.Tensor,
                          f"(B, h32, w32, K+1) tensor, got {aug.dtype} "
                          f"{tuple(aug.shape)}")
     b, h32, w32, kp1 = aug.shape
+    fill = _host(fill, np.float32, "fill")
+    if fill.shape != (kp1,):
+        raise ValueError(f"szn_labels: the partition has {fill.shape} "
+                         f"rows, aug K+1 = {kp1}")
+    words, n_seen, fx_seen, fx_unseen = kernel_partition(seen, unseen, fill)
     dev = aug.device
-    for name, t, dt in (("seen", seen, torch.int32),
-                        ("unseen", unseen, torch.int32),
-                        ("fill", fill, torch.float32)):
-        if t.shape != (kp1,) or t.dtype != dt or t.device != dev \
-                or not t.is_contiguous():
-            raise ValueError(f"szn_labels: {name} must be a contiguous {dt} "
-                             f"({kp1},) tensor on {dev}")
-    row_i0, row_w = _taps(h32, out_h, str(dev))
-    col_i0, col_w = _taps(w32, out_w, str(dev))
+    row_i0, row_w = _taps(h32, out_h, dev)
+    col_i0, col_w = _taps(w32, out_w, dev)
     out = torch.empty((b, out_h, out_w), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
+    plan = k1_plan(b, h32, w32, kp1, out_h, out_w, n_seen)
     fn = _kernels.function("szn_fused", "szn_fused_labels", _ARGTYPES)
     p = _kernels.ptr
-    rc = fn(p(aug), p(seen), p(unseen), p(fill), p(row_i0), p(row_w),
-            p(col_i0), p(col_w), p(out), b, h32, w32, kp1, out_h, out_w,
+    rc = fn(p(aug), _kernels.P(words.ctypes.data), p(row_i0), p(row_w),
+            p(col_i0), p(col_w), p(out), b, h32, w32, kp1, n_seen, out_h,
+            out_w, plan["instance"], plan["u0"], plan["gate"],
+            plan["stride"], plan["rows"], fx_seen, fx_unseen,
             _kernels.P(_kernels.stream_handle(dev)))
     _kernels.check("szn_fused", rc)
     _kernels.launch_counts["szn_fused"] += 1
@@ -135,18 +275,23 @@ def _aug(score_small: torch.Tensor, gate_small: torch.Tensor,
     return torch.cat([sims, gate_small[..., None]], dim=-1).contiguous()
 
 
-def _partition(cls_seen: torch.Tensor, cls_unseen: torch.Tensor):
-    """(seen, unseen, fill) over K+1 rows; row K (the gate) is in neither
-    partition and fills with -1e30 so it never wins an argmax."""
-    dev = cls_seen.device
-    zero = torch.zeros((1,), dtype=torch.int32, device=dev)
-    k = cls_seen.shape[0]
-    seen = torch.cat([cls_seen.to(torch.int32), zero])
-    unseen = torch.cat([cls_unseen.to(torch.int32), zero])
-    fill = torch.cat([torch.zeros((k,), dtype=torch.float32, device=dev),
-                      torch.full((1,), _GATE_FILL, dtype=torch.float32,
-                                 device=dev)])
-    return seen, unseen, fill
+@functools.lru_cache(maxsize=64)
+def _partition_cached(seen: bytes, unseen: bytes):
+    k = len(seen)
+    parts = (np.append(np.frombuffer(seen, bool), False).astype(np.int32),
+             np.append(np.frombuffer(unseen, bool), False).astype(np.int32),
+             np.append(np.zeros(k, np.float32), np.float32(_GATE_FILL)))
+    for a in parts:
+        a.setflags(write=False)
+    return parts
+
+
+def _partition(cls_seen, cls_unseen):
+    """(seen, unseen, fill) over K+1 rows, host numpy arrays (int32, int32,
+    float32) made once per mask; row K (the gate) is in neither partition
+    and fills with -1e30 so it never wins an argmax."""
+    return _partition_cached(np.asarray(cls_seen, bool).tobytes(),
+                             np.asarray(cls_unseen, bool).tobytes())
 
 
 def infer_labels_szn_fused(score_small: torch.Tensor,
@@ -163,8 +308,7 @@ def infer_labels_szn_fused(score_small: torch.Tensor,
     if e.shape[1] != score_small.shape[-1]:
         raise ValueError(f"embeddings {tuple(e.shape)} do not match the "
                          f"score width {score_small.shape[-1]}")
-    uv = torch.as_tensor(np.asarray(unseen_class_mask, dtype=bool),
-                         device=dev)
+    uv = np.asarray(unseen_class_mask, dtype=bool)
     seen, unseen, fill = _partition(~uv, uv)
     gate = (seenmask_small[..., 0] - seenmask_small[..., 1]).to(torch.float32)
     return szn_labels(_aug(score_small, gate, e), seen, unseen, fill,
@@ -180,9 +324,7 @@ def infer_labels_nne_fused(score_small: torch.Tensor, embeddings,
     dev = score_small.device
     e = _embed_scaled(embeddings, dev)
     k = e.shape[0]
-    seen, unseen, fill = _partition(
-        torch.ones((k,), dtype=torch.bool, device=dev),
-        torch.zeros((k,), dtype=torch.bool, device=dev))
+    seen, unseen, fill = _partition(np.ones(k, bool), np.zeros(k, bool))
     gate = torch.full(score_small.shape[:-1], -1.0, dtype=torch.float32,
                       device=dev)
     return szn_labels(_aug(score_small, gate, e), seen, unseen, fill,
