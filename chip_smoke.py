@@ -122,7 +122,22 @@ Phases, each of which passes or ends the script with a non-zero exit:
    (the 512x512 product and torch.matmul also by device time alone);
 19. scripts/torch_probe_h2d.py pallas_dot rowdot_pl, one fresh process per
    mode: exit code 0, one JSON line per mode, K7 (K10a) and K10b launched,
-   the bandwidths logged.
+   the bandwidths logged;
+20. the train CLI on the card: `cli.train.main(["-c", "14", "--synthetic",
+   "-ve", "1", "-se", "1", ...])` at full width, bf16, the preset's batch
+   sizes (num_viz set to 0 through run_experiment's cfg: the card's machine
+   has no Pillow), its files, finite losses and the launch counts computed
+   from the loaders' lengths (K3-K6 once a stage-1 step, K2 once a stage-2
+   step and once a validation batch, K1 once a stage-1 validation batch,
+   K7 never); a resume (`-r <log_dir>/checkpoint -ve 2 -se 0`) with the
+   parameters and Adam's moments bit-equal to the file, starting at stage
+   1's step count, and one more epoch; one loop timing of FCNTrainer at
+   B=24, 512x512, the compact feed, 40 steps after a warm-up with host
+   syncs turned into errors between log flushes (two flushes inside the
+   epoch): its img/s over the epoch and in the steady window after the
+   first step, beside the bare step on the same trainer and phase 10's,
+   the loader's first batch and rate alone, the save time of one
+   checkpoint and the peak memory.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -176,6 +191,8 @@ PDOT_RAGGED = ((300, 1000, 264), (512, 1000, 264))
 # bench's (scripts/bench_block1.py:16)
 C11_SHAPES = ((2, 38, 42, 3), (2, 66, 34, 3), (16, 530, 530, 3))
 ROWDOT_SHAPE = (8, H, W, 21)      # the probe's rowdot_pl inputs
+LOOP_IMAGES = 960                  # phase 20's loop: 40 steps at B=24
+LOOP_WARMUP_IMAGES = 96            # its warm-up epoch: 4 steps
 PROBE_TIMEOUT_S = 420
 
 
@@ -213,17 +230,27 @@ def device_ms(fn, iters: int, name: str = "") -> float:
     kernel time over `iters` calls (after a warm-up), per call, of the
     kernels whose name holds `name`. Unlike `time_ms` it leaves out the
     host's time between launches, which sets the event time of a product
-    as small as the probe's."""
+    as small as the probe's. A window in which the profiler recorded no
+    device time at all (it has happened once in a run that had profiled
+    before) is profiled again, up to three windows; then the script
+    fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if name in e.key) / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if name in e.key)
+        if total > 0:
+            return total / 1e3 / iters
+        log(f"[profiler] no device time recorded for {name or 'the call'}; "
+            "profiling again")
+    fail(f"torch.profiler recorded no device time for {name or 'the call'} "
+         "in three windows")
 
 
 def card_line() -> str | None:
@@ -831,6 +858,320 @@ def phase_probe(log, require) -> dict:
     require(modes["rowdot_pl"]["launches"].get("rowdot", 0) >= 1,
             f"rowdot_pl did not launch K10b: {modes['rowdot_pl']}")
     return modes
+
+
+def _nested_equal(a, b) -> bool:
+    """Bit equality of two nests of dicts, lists, tuples and tensors (the
+    tensors compared on the CPU)."""
+    import torch
+    if torch.is_tensor(b):
+        return torch.is_tensor(a) and a.dtype == b.dtype and torch.equal(
+            a.detach().cpu(), b.detach().cpu())
+    if isinstance(b, dict):
+        return isinstance(a, dict) and set(a) == set(b) and all(
+            _nested_equal(a[k], b[k]) for k in b)
+    if isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(
+            _nested_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def phase_train_cli(dev, embed, bare_img_s, log, require) -> dict:
+    """Phase 20: the train CLI on the card.
+
+    1. `cli.train.main(["-c", "14", "--synthetic", "-ve", "1", "-se", "1",
+       "-dir", <tmp>])`: full width, bf16, the preset's batch sizes (1, 1),
+       so 6 stage-1 steps, 4 validation images, 8 stage-2 steps and a
+       second validation. `num_viz` is set to 0 through `run_experiment`'s
+       cfg: the card's machine has no Pillow to write the viz tiles. Its
+       files, finite losses, and the launch counts computed from the
+       loaders' lengths: K3-K6 once a stage-1 step; K2 once a stage-2 step
+       and once a validation batch of either stage (every forward without
+       autograd); K1 once a stage-1 validation batch (the fused NNE eval);
+       K7 never.
+    2. The resume: `-r <log_dir>/checkpoint -ve 2 -se 0` restores the
+       parameters and Adam's moments bit-equal to the file, starts at
+       stage 1's step count (the file is stage 2's last save, which keeps
+       stage 1's counters) and trains one more epoch.
+    3. One loop timing: FCNTrainer over SyntheticDataset(960 images,
+       500-512 px) at B=24, 512x512, the compact feed, log flushes at 16: a
+       4-step warm-up epoch on 96 other images, then one epoch of 40 steps
+       with host syncs turned into errors between flushes (the flushes at
+       steps 16 and 32 fall inside it). Its img/s over the whole epoch and
+       in the steady window (CUDA events recorded after each step: from
+       the end of the first step to the end of the last, both flushes
+       inside; the host's time between step calls beside it), the wait
+       for the epoch's first batch apart, beside the bare step on the
+       same trainer (a resident batch, no feed, no logging)
+       and phase 10's (`bare_img_s`); the loader's first batch and its rate
+       alone, the save time of one full-width checkpoint (Adam's moments
+       with it) and the peak memory of the loop and of the bare step (the
+       memory already allocated before the loop's model is logged beside
+       them).
+    """
+    import tempfile
+
+    import torch
+    from zeroshotsemanticsegmentation_tpu_torch.cli import train as cli
+    from zeroshotsemanticsegmentation_tpu_torch.configs import get_config
+    from zeroshotsemanticsegmentation_tpu_torch.data import (
+        BatchLoader, SyntheticDataset)
+    from zeroshotsemanticsegmentation_tpu_torch.models.fcn32s import FCN32s
+    from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
+    from zeroshotsemanticsegmentation_tpu_torch.train import (
+        FCNTrainer, make_fcn_optimizer)
+    from zeroshotsemanticsegmentation_tpu_torch.train import checkpoint as ck
+    from zeroshotsemanticsegmentation_tpu_torch.train import trainer_fcn
+    from zeroshotsemanticsegmentation_tpu_torch.utils import RunLogger
+
+    real_run = cli.run_experiment
+
+    def run_no_viz(cfg, **kw):
+        return real_run(cfg.replace(num_viz=0), **kw)
+
+    def csv_rows(path):
+        with open(path) as f:
+            lines = f.read().splitlines()
+        return [line.split(",") for line in lines[1:]]
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the two-stage run, launch counts from the loaders' lengths
+        cfg = get_config(14, fcn_epochs=1, seenmask_epochs=1)
+        train_ds, seen_ds, val_ds = cli._build_datasets(
+            cfg, data_dir=tmp, synthetic=True)
+        n_s1 = len(BatchLoader(seen_ds, cfg.batch_size))
+        n_s2 = len(BatchLoader(train_ds, cfg.batch_size))
+        n_val = len(BatchLoader(val_ds, cfg.eval_batch_size))
+        want = {"block1_train_fwd": n_s1, "block1_train_bwd": n_s1,
+                "costail_fwd": n_s1, "costail_bwd": n_s1,
+                "block1_fused": n_s2 + 2 * n_val, "szn_fused": n_val}
+        argv = ["-c", "14", "--synthetic", "-ve", "1", "-se", "1",
+                "-dir", tmp]
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(cli, "run_experiment", run_no_viz):
+            summary = cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        got = dict(_kernels.launch_counts)
+        log_dir = summary["log_dir"]
+        log(f"[train cli] {' '.join(argv[:-2])}: {run_s:.1f} s, launches "
+            f"{got}, expected {want}")
+        for name in ("config.yaml", "counts.csv", "train_log.csv",
+                     "val_log.csv", "seenmask_train_log.csv",
+                     "seenmask_val_log.csv", "checkpoint", "best"):
+            require(osp.isfile(osp.join(log_dir, name)),
+                    f"train CLI did not write {name}")
+        s1 = csv_rows(osp.join(log_dir, "train_log.csv"))
+        s2 = csv_rows(osp.join(log_dir, "seenmask_train_log.csv"))
+        losses = [float(r[2]) for r in s1 + s2]
+        require(len(s1) == n_s1 and len(s2) == n_s2,
+                f"train CLI logged {len(s1)} + {len(s2)} steps")
+        require(all(np.isfinite(x) for x in losses),
+                f"train CLI losses {losses}")
+        for key, n in want.items():
+            require(got[key] == n, f"train CLI: {key} launched {got[key]} "
+                    f"times, expected {n}")
+        require(got["pdot"] == 0, f"train CLI launched K7: {got}")
+        out["cli"] = {"seconds": run_s, "launches": got,
+                      "steps": [n_s1, n_s2], "val_batches": n_val,
+                      "losses": losses,
+                      "best_mean_iu": summary["best_mean_iu"],
+                      "seenmask_best_mean_iu":
+                          summary["seenmask_best_mean_iu"]}
+
+        # 2. the resume: parameters and moments as saved, one more epoch
+        path = osp.join(log_dir, "checkpoint")
+        saved = ck.restore_checkpoint(path)
+        os.remove(osp.join(log_dir, "best"))  # disk: one 1.6 GB file less
+        real_train = trainer_fcn.FCNTrainer.train
+        restored = {}
+
+        def checked_train(self):
+            sd = self.state.model.state_dict()
+            restored["params"] = all(
+                torch.equal(sd[k].cpu(), v) for k, v in
+                saved["params"].items())
+            live = self.state.optimizer.state_dict()
+            restored["moments"] = bool(saved["opt_state"]["state"]) and \
+                _nested_equal(live["state"], saved["opt_state"]["state"])
+            restored["groups"] = (live["param_groups"]
+                                  == saved["opt_state"]["param_groups"])
+            restored["start"] = (self.epoch, self.iteration)
+            return real_train(self)
+
+        argv = ["-c", "14", "--synthetic", "-r", path, "-ve", "2", "-se",
+                "0", "-dir", tmp]
+        _kernels.reset_launch_counts()
+        with mock.patch.object(cli, "run_experiment", run_no_viz), \
+                mock.patch.object(trainer_fcn.FCNTrainer, "train",
+                                  checked_train):
+            resumed = cli.main(argv)
+        torch.cuda.synchronize()
+        got = dict(_kernels.launch_counts)
+        r1 = csv_rows(osp.join(resumed["log_dir"], "train_log.csv"))
+        log(f"[train cli] resume from {saved['epoch']}/{saved['iteration']}: "
+            f"{restored}, {len(r1)} steps, launches {got}")
+        require(restored.get("params") and restored.get("moments")
+                and restored.get("groups"),
+                f"resume did not restore the checkpoint bit-equal: "
+                f"{restored}")
+        # the run's last save is stage 2's: it keeps stage 1's counters
+        require(restored["start"] == (saved["epoch"] + 1, n_s1)
+                and saved["iteration"] == n_s1,
+                f"resume starts at {restored['start']}, stage 1 ran {n_s1} "
+                "steps")
+        require(len(r1) == n_s1 and {r[0] for r in r1} == {"1"},
+                f"resume trained {len(r1)} steps: {r1}")
+        require(got["costail_fwd"] == n_s1 and got["szn_fused"] == n_val
+                and got["pdot"] == 0, f"resume launches {got}")
+        out["resume"] = {"restored": restored, "steps": len(r1)}
+        del saved
+        shutil.rmtree(log_dir)
+        shutil.rmtree(resumed["log_dir"])
+
+        # 3. the loop: FCNTrainer at B=24 on the compact feed
+        lcfg = get_config(14, batch_size=TRAIN_BATCH,
+                          eval_batch_size=TRAIN_BATCH)
+        loader, warm_loader = (
+            BatchLoader(SyntheticDataset(num_images=n, num_classes=21,
+                                         size_range=(500, 512), seed=seed),
+                        TRAIN_BATCH, bucket_hw=(H, W), shuffle=True,
+                        seed=lcfg.seed, compact=True)
+            for n, seed in ((LOOP_IMAGES, 0), (LOOP_WARMUP_IMAGES, 1)))
+        t0 = time.perf_counter()
+        it = iter(loader)
+        next(it)  # an epoch's start: the first batch off the loader
+        first_batch_s = time.perf_counter() - t0
+        it.close()
+        t0 = time.perf_counter()
+        n_feed = sum(b["num_real"] for b in loader)
+        feed_img_s = n_feed / (time.perf_counter() - t0)
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        model = FCN32s(20, dtype=torch.bfloat16, fused_block1=True,
+                       generator=torch.Generator().manual_seed(lcfg.seed),
+                       device=dev)
+        trainer = FCNTrainer(
+            cfg=lcfg, model=model,
+            optimizer=make_fcn_optimizer(model, optim="adam",
+                                         lr=lcfg.fcn_lr),
+            train_loader=warm_loader, val_loader=loader,
+            logger=RunLogger(osp.join(tmp, "loop"), tensorboard=False,
+                             verbose=False),
+            embeddings=embed, target_embeddings=embed, upscore_trained=False)
+        trainer.train_epoch()  # warm-up
+        trainer.train_loader = loader
+        torch.cuda.synchronize()
+        real_flush = trainer_fcn.StepLogBuffer.flush
+        real_step = trainer._train_step
+        marks, flushes = [], []
+
+        def flush_synced(self):  # a flush reads back by design
+            if self._pending:
+                flushes.append(len(marks))
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                real_flush(self)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+
+        def marked_step(*a):  # (host time at the call, event after it)
+            t = time.perf_counter()
+            res = real_step(*a)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((t, ev))
+            return res
+
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        trainer.epoch = 1
+        trainer._train_step = marked_step
+        t0 = time.perf_counter()
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            with mock.patch.object(trainer_fcn.StepLogBuffer, "flush",
+                                   flush_synced):
+                trainer.train_epoch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            trainer._train_step = real_step
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        got = dict(_kernels.launch_counts)
+        n_steps, n_warm = len(loader), len(warm_loader)
+        require(got["costail_fwd"] == n_steps
+                and got["block1_train_bwd"] == n_steps
+                and len(marks) == n_steps,
+                f"loop launches {got} for {n_steps} steps")
+        fs = lcfg.log_flush_steps
+        require(flushes == [*range(fs, n_steps, fs), n_steps]
+                and len(flushes) >= 3,
+                f"loop flushed after steps {flushes}")
+        first_wait_s = marks[0][0] - t0
+        steady_s = marks[0][1].elapsed_time(marks[-1][1]) / 1e3
+        steady_img_s = (n_steps - 1) * TRAIN_BATCH / steady_s
+        rows = csv_rows(osp.join(tmp, "loop", "train_log.csv"))
+        require(len(rows) == n_warm + n_steps
+                and all(np.isfinite(float(r[2])) for r in rows),
+                f"loop rows {rows}")
+        # the bare step on the same trainer, in this phase: one batch
+        # resident on the card, no feed, no logging
+        dbatch = trainer_fcn.take_batch(*trainer_fcn.put_batch(
+            next(iter(loader)), dev))
+
+        def bare_step():
+            trainer.state, _ = trainer._train_step(
+                trainer.state, dbatch, trainer._generator)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bare_ms = time_ms(bare_step, iters=8, warmup=1)
+        bare_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del dbatch
+        t0 = time.perf_counter()
+        ck.save_checkpoint(osp.join(tmp, "save"),
+                           model_state=model.state_dict(),
+                           optim_state=trainer.state.optimizer.state_dict(),
+                           epoch=1, iteration=trainer.iteration,
+                           best_mean_iu=0.0, is_best=True)
+        save_s = time.perf_counter() - t0
+        save_gb = os.path.getsize(osp.join(tmp, "save", "checkpoint")) / 1e9
+        loop_img_s = n_steps * TRAIN_BATCH / loop_s
+        bare_here = TRAIN_BATCH / (bare_ms / 1e3)
+        out["loop"] = {
+            "batch": TRAIN_BATCH, "hw": [H, W], "dtype": "bfloat16",
+            "steps": n_steps, "images": LOOP_IMAGES,
+            "warmup_steps": n_warm,
+            "log_flush_steps": fs, "flushes_after_steps": flushes,
+            "seconds": loop_s, "images_per_s": loop_img_s,
+            "first_step_wait_s": first_wait_s,
+            "steady_seconds": steady_s,
+            "steady_images_per_s": steady_img_s,
+            "steady_host_ms_per_step":
+                1e3 * (marks[-1][0] - marks[0][0]) / (n_steps - 1),
+            "bare_step_images_per_s": bare_here,
+            "bare_step_ms": bare_ms,
+            "phase10_bare_step_images_per_s": bare_img_s,
+            "loop_over_bare": loop_img_s / bare_here,
+            "steady_over_bare": steady_img_s / bare_here,
+            "overhead_ms_per_step": 1e3 * loop_s / n_steps - bare_ms,
+            "steady_overhead_ms_per_step":
+                1e3 * steady_s / (n_steps - 1) - bare_ms,
+            "first_batch_s": first_batch_s,
+            "feed_alone_images_per_s": feed_img_s,
+            "allocated_before_gb": base_gb,
+            "max_memory_allocated_gb": peak_gb,
+            "bare_step_max_memory_allocated_gb": bare_peak_gb,
+            "checkpoint_save_s": save_s, "checkpoint_gb": save_gb,
+            "syncs_between_flushes": 0}
+        log(json.dumps({"train_loop": out["loop"]}))
+        del trainer, model
+    out["launches"] = out["cli"]["launches"]
+    return out
 
 
 def main() -> None:
@@ -1907,6 +2248,10 @@ def main() -> None:
     # ---- 19. the H2D probe's two kernel modes -------------------------------
     probe = phase_probe(log, require)
 
+    # ---- 20. the train CLI on the card ----------------------------------------
+    tcli = phase_train_cli(dev, embed, img_s, log, require)
+    cli_launches = tcli["launches"]
+
     src = "zeroshotsemanticsegmentation_tpu_torch/csrc/"
     ref = "zeroshotsemanticsegmentation_tpu/ops/"
     kernels = [
@@ -1914,6 +2259,7 @@ def main() -> None:
          "source": src + "szn_fused.cu",
          "replaces": ref + "szn_fused.py:44",
          "launches": launches["szn_fused"],
+         "launches_train_cli": cli_launches["szn_fused"],
          "launches_eval": evals["k1_launches"], "max_abs_err": k1_maxerr,
          "flip_rate": k1_flips, "flip_rate_k33": k33_flips,
          "flip_rate_ties": tie_flips, "ms": k1_ms,
@@ -1924,7 +2270,9 @@ def main() -> None:
         {"name": "block1_fused_forward", "route": "cuda",
          "source": src + "block1_fused.cu",
          "replaces": ref + "block1_fused.py:485",
-         "launches": launches["block1_fused"], "max_abs_err": k2_bf16_err,
+         "launches": launches["block1_fused"],
+         "launches_train_cli": cli_launches["block1_fused"],
+         "max_abs_err": k2_bf16_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms,
          "shape": [SERVE_BATCH, H + 10, W + 10, 3], "dtype": "bfloat16",
@@ -1937,7 +2285,8 @@ def main() -> None:
         {"name": "block1_train_forward", "route": "cuda",
          "source": src + "block1_train.cu",
          "replaces": ref + "block1_fused.py:288",
-         "launches": tlaunches["block1_train_fwd"], "max_abs_err": k3_err,
+         "launches": tlaunches["block1_train_fwd"],
+         "launches_train_cli": cli_launches["block1_train_fwd"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": k3_lib_ms,
          "shape": [TRAIN_BATCH, hc, hc, 64], "dtype": "bfloat16",
@@ -1949,7 +2298,8 @@ def main() -> None:
         {"name": "block1_train_backward", "route": "cuda",
          "source": src + "block1_train.cu",
          "replaces": ref + "block1_fused.py:676",
-         "launches": tlaunches["block1_train_bwd"], "max_abs_err": k4_err,
+         "launches": tlaunches["block1_train_bwd"],
+         "launches_train_cli": cli_launches["block1_train_bwd"], "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": k4_lib_ms,
          "shape": [TRAIN_BATCH, hc, hc, 64], "dtype": "bfloat16",
@@ -1965,6 +2315,7 @@ def main() -> None:
          "source": src + "costail_fused.cu",
          "replaces": ref + "costail_fused.py:108",
          "launches": tlaunches["costail_fwd"],
+         "launches_train_cli": cli_launches["costail_fwd"],
          "max_abs_err": tail_errs[20][0], "ms": tail20["k5_ms"],
          "device_ms": tail20["k5_device_ms"],
          "bound_share": tail20["k5_share"],
@@ -1991,6 +2342,7 @@ def main() -> None:
          "source": src + "costail_fused.cu",
          "replaces": ref + "costail_fused.py:145",
          "launches": tlaunches["costail_bwd"],
+         "launches_train_cli": cli_launches["costail_bwd"],
          "max_abs_err": tail_errs[20][1], "ms": tail20["k6_ms"],
          "device_ms": tail20["k6_device_ms"],
          "bound_share": tail20["k6_share"],
@@ -2010,6 +2362,7 @@ def main() -> None:
         {"name": "pdot", "route": "cuda", "source": src + "pdot.cu",
          "replaces": ref + "pdot.py:47",
          "launches": dlaunches["pdot"],
+         "launches_train_cli": cli_launches["pdot"],
          "launches_stage2_dot_free": STAGE2_STEPS,
          "max_abs_err": fc6_row["max_abs_err"], "ms": fc6_row["ms"],
          "plain_ms": fc6_row["plain_ms"], "bound_ms": fc6_row["bound_ms"],

@@ -55,8 +55,18 @@ def test_import_loads_no_jax():
         "import zeroshotsemanticsegmentation_tpu_torch.ops.costail_fused\n"
         "import zeroshotsemanticsegmentation_tpu_torch.ops.pool_bwd\n"
         "import zeroshotsemanticsegmentation_tpu_torch.ops.rowdot\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.configs\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.data\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.utils\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.viz\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.models.ref_export\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.models.vgg_import\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.train.checkpoint\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.train.trainer_seenmask\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.cli.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'zeroshotsemanticsegmentation_tpu'))\n"
+        "('jax', 'flax', 'optax', 'orbax', 'yaml', 'PIL', 'scipy', "
+        "'zeroshotsemanticsegmentation_tpu'))\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=_ROOT, check=True,
                    timeout=120)

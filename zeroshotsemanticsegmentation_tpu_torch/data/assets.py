@@ -89,3 +89,13 @@ def load_class_embeddings(dataset: str, embed_dim: int, *,
     if arr.shape != (n, embed_dim):
         raise ValueError(f"bad embedding matrix {path}: {arr.shape}")
     return arr
+
+
+def load_split_ids(dataset: str, split: str, *,
+                   assets_dir: str | None = None) -> list[str]:
+    """Image ids of a split ('train' or 'val'); 'train_seen' reads
+    train.txt and is filtered further (reference pascal_dataset.py:59-60)."""
+    assets_dir = assets_dir or _ASSETS_DIR
+    fname = "train.txt" if split in ("train", "train_seen") else f"{split}.txt"
+    with open(osp.join(assets_dir, dataset, fname)) as f:
+        return [line.strip() for line in f if line.strip()]

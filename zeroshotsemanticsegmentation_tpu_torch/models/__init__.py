@@ -1,1 +1,2 @@
-"""Models: FCN-32s, its support-pruned blocks and the JAX weight bridge."""
+"""Models: FCN-32s, its support-pruned blocks, the JAX weight bridge, the
+reference checkpoint format (import, export) and VGG16 import."""
