@@ -131,13 +131,26 @@ Phases, each of which passes or ends the script with a non-zero exit:
    step and once a validation batch, K1 once a stage-1 validation batch,
    K7 never); a resume (`-r <log_dir>/checkpoint -ve 2 -se 0`) with the
    parameters and Adam's moments bit-equal to the file, starting at stage
-   1's step count, and one more epoch; one loop timing of FCNTrainer at
+   1's step count, and one more epoch (`cli_run_and_resume`; the run's
+   checkpoint is kept for phase 21); one loop timing of FCNTrainer at
    B=24, 512x512, the compact feed, 40 steps after a warm-up with host
    syncs turned into errors between log flushes (two flushes inside the
    epoch): its img/s over the epoch and in the steady window after the
    first step, beside the bare step on the same trainer and phase 10's,
    the loader's first batch and rate alone, the save time of one
-   checkpoint and the peak memory.
+   checkpoint and the peak memory;
+21. FCN-8s, the predict and export CLIs and int8 serving
+   (`phase_fcn8s_int8`): FCN-8s serving at B=64 (K2 once a call, K1
+   never; vs K2's plain version; the serving bf16 bar; fp32 B=2 flips <
+   1e-4), FCN-8s stage 1 at B=24 (K3-K6 once a step, K2 never; fp32 B=2
+   gradients vs the plain versions < 1e-4), FCN-8s stage 2 (K2 once, only
+   `seenmask_score` moves), the train CLI with `--arch fcn8s` and its
+   resume, `cli.predict`'s `build_predictor` and `predict_arrays` from
+   both checkpoints (and `--int8`), `cli.export` on phase 20's checkpoint
+   (round trip; FCN-8s refused), int8 serving of FCN-32s at B=64 (K1 once,
+   K2 never, flips vs bf16 < 0.08); times, peak memory and profile windows
+   of FCN-8s serving, its stage-1 step and int8 serving. The kernels line
+   carries each kernel's launches on these paths.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -154,6 +167,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -876,23 +890,150 @@ def _nested_equal(a, b) -> bool:
     return a == b
 
 
-def phase_train_cli(dev, embed, bare_img_s, log, require) -> dict:
+def cli_run_and_resume(tmp: str, arch: str, log, require) -> dict:
+    """The train CLI's `-c 14 --synthetic -ve 1 -se 1 --arch <arch>` run
+    on the card, and a resume from its last checkpoint (phase 20 for
+    FCN-32s, phase 21 (d) for FCN-8s).
+
+    The run: full width, bf16, the preset's batch sizes (1, 1), so 6
+    stage-1 steps, 4 validation images, 8 stage-2 steps and a second
+    validation. `num_viz` is set to 0 through `run_experiment`'s cfg: the
+    card's machine has no Pillow to write the viz tiles. Its files, finite
+    losses, the checkpoint's arch, and the launch counts computed from the
+    loaders' lengths: K3-K6 once a stage-1 step; K2 once a stage-2 step and
+    once a validation batch of either stage (every forward without
+    autograd); K1 once a stage-1 validation batch for FCN-32s (the fused
+    NNE eval) and never for FCN-8s (no raw heads: the unfused eval); K7
+    never. The resume: `-r <log_dir>/checkpoint -ve 2 -se 0` restores the
+    parameters and Adam's moments bit-equal to the file, starts at stage
+    1's step count (the file is stage 2's last save, which keeps stage 1's
+    counters) and trains one more epoch. The first run's log directory
+    (config.yaml, `checkpoint`) is kept for the predict and export CLIs;
+    its `best` and the resumed run's directory are removed."""
+    import torch
+    from zeroshotsemanticsegmentation_tpu_torch.cli import train as cli
+    from zeroshotsemanticsegmentation_tpu_torch.configs import get_config
+    from zeroshotsemanticsegmentation_tpu_torch.data import BatchLoader
+    from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
+    from zeroshotsemanticsegmentation_tpu_torch.train import checkpoint as ck
+    from zeroshotsemanticsegmentation_tpu_torch.train import trainer_fcn
+
+    real_run = cli.run_experiment
+
+    def run_no_viz(cfg, **kw):
+        return real_run(cfg.replace(num_viz=0), **kw)
+
+    out = {}
+    cfg = get_config(14, fcn_epochs=1, seenmask_epochs=1, arch=arch)
+    train_ds, seen_ds, val_ds = cli._build_datasets(
+        cfg, data_dir=tmp, synthetic=True)
+    n_s1 = len(BatchLoader(seen_ds, cfg.batch_size))
+    n_s2 = len(BatchLoader(train_ds, cfg.batch_size))
+    n_val = len(BatchLoader(val_ds, cfg.eval_batch_size))
+    k1_val = n_val if arch == "fcn32s" else 0
+    want = {"block1_train_fwd": n_s1, "block1_train_bwd": n_s1,
+            "costail_fwd": n_s1, "costail_bwd": n_s1,
+            "block1_fused": n_s2 + 2 * n_val, "szn_fused": k1_val}
+    argv = ["-c", "14", "--synthetic", "-ve", "1", "-se", "1", "--arch",
+            arch, "-n", arch, "-dir", tmp]
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(cli, "run_experiment", run_no_viz):
+        summary = cli.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    got = dict(_kernels.launch_counts)
+    log_dir = summary["log_dir"]
+    log(f"[train cli] {' '.join(argv[:-2])}: {run_s:.1f} s, launches "
+        f"{got}, expected {want}")
+    for name in ("config.yaml", "counts.csv", "train_log.csv",
+                 "val_log.csv", "seenmask_train_log.csv",
+                 "seenmask_val_log.csv", "checkpoint", "best"):
+        require(osp.isfile(osp.join(log_dir, name)),
+                f"train CLI did not write {name}")
+    s1 = csv_rows(osp.join(log_dir, "train_log.csv"))
+    s2 = csv_rows(osp.join(log_dir, "seenmask_train_log.csv"))
+    losses = [float(r[2]) for r in s1 + s2]
+    require(len(s1) == n_s1 and len(s2) == n_s2,
+            f"train CLI logged {len(s1)} + {len(s2)} steps")
+    require(all(np.isfinite(x) for x in losses),
+            f"train CLI losses {losses}")
+    for key, n in want.items():
+        require(got[key] == n, f"train CLI: {key} launched {got[key]} "
+                f"times, expected {n}")
+    require(got["pdot"] == 0, f"train CLI launched K7: {got}")
+    out["cli"] = {"arch": arch, "seconds": run_s, "launches": got,
+                  "steps": [n_s1, n_s2], "val_batches": n_val,
+                  "losses": losses,
+                  "best_mean_iu": summary["best_mean_iu"],
+                  "seenmask_best_mean_iu": summary["seenmask_best_mean_iu"]}
+
+    # the resume: parameters and moments as saved, one more epoch
+    path = osp.join(log_dir, "checkpoint")
+    saved = ck.restore_checkpoint(path)
+    want_arch = {"fcn32s": "FCN32s", "fcn8s": "FCN8s"}[arch]
+    require(saved["arch"] == want_arch,
+            f"the {arch} checkpoint says arch {saved['arch']!r}")
+    os.remove(osp.join(log_dir, "best"))  # disk: one 1.6 GB file less
+    real_train = trainer_fcn.FCNTrainer.train
+    restored = {}
+
+    def checked_train(self):
+        sd = self.state.model.state_dict()
+        restored["params"] = all(
+            torch.equal(sd[k].cpu(), v) for k, v in saved["params"].items())
+        live = self.state.optimizer.state_dict()
+        restored["moments"] = bool(saved["opt_state"]["state"]) and \
+            _nested_equal(live["state"], saved["opt_state"]["state"])
+        restored["groups"] = (live["param_groups"]
+                              == saved["opt_state"]["param_groups"])
+        restored["start"] = (self.epoch, self.iteration)
+        return real_train(self)
+
+    argv = ["-c", "14", "--synthetic", "-r", path, "-ve", "2", "-se", "0",
+            "--arch", arch, "-n", arch + "_resume", "-dir", tmp]
+    _kernels.reset_launch_counts()
+    with mock.patch.object(cli, "run_experiment", run_no_viz), \
+            mock.patch.object(trainer_fcn.FCNTrainer, "train",
+                              checked_train):
+        resumed = cli.main(argv)
+    torch.cuda.synchronize()
+    got = dict(_kernels.launch_counts)
+    r1 = csv_rows(osp.join(resumed["log_dir"], "train_log.csv"))
+    log(f"[train cli] {arch} resume from {saved['epoch']}/"
+        f"{saved['iteration']}: {restored}, {len(r1)} steps, launches {got}")
+    require(restored.get("params") and restored.get("moments")
+            and restored.get("groups"),
+            f"resume did not restore the checkpoint bit-equal: {restored}")
+    # the run's last save is stage 2's: it keeps stage 1's counters
+    require(restored["start"] == (saved["epoch"] + 1, n_s1)
+            and saved["iteration"] == n_s1,
+            f"resume starts at {restored['start']}, stage 1 ran {n_s1} "
+            "steps")
+    require(len(r1) == n_s1 and {r[0] for r in r1} == {"1"},
+            f"resume trained {len(r1)} steps: {r1}")
+    require(got["costail_fwd"] == n_s1 and got["szn_fused"] == k1_val
+            and got["pdot"] == 0, f"resume launches {got}")
+    out["resume"] = {"restored": restored, "steps": len(r1)}
+    out["checkpoint"] = path
+    del saved
+    shutil.rmtree(resumed["log_dir"])
+    return out
+
+
+def csv_rows(path):
+    with open(path) as f:
+        lines = f.read().splitlines()
+    return [line.split(",") for line in lines[1:]]
+
+
+def phase_train_cli(dev, embed, bare_img_s, tmp, log, require) -> dict:
     """Phase 20: the train CLI on the card.
 
-    1. `cli.train.main(["-c", "14", "--synthetic", "-ve", "1", "-se", "1",
-       "-dir", <tmp>])`: full width, bf16, the preset's batch sizes (1, 1),
-       so 6 stage-1 steps, 4 validation images, 8 stage-2 steps and a
-       second validation. `num_viz` is set to 0 through `run_experiment`'s
-       cfg: the card's machine has no Pillow to write the viz tiles. Its
-       files, finite losses, and the launch counts computed from the
-       loaders' lengths: K3-K6 once a stage-1 step; K2 once a stage-2 step
-       and once a validation batch of either stage (every forward without
-       autograd); K1 once a stage-1 validation batch (the fused NNE eval);
-       K7 never.
-    2. The resume: `-r <log_dir>/checkpoint -ve 2 -se 0` restores the
-       parameters and Adam's moments bit-equal to the file, starts at
-       stage 1's step count (the file is stage 2's last save, which keeps
-       stage 1's counters) and trains one more epoch.
+    1. and 2. `cli_run_and_resume(tmp, "fcn32s")`: the `-c 14 --synthetic
+       -ve 1 -se 1` run, its files, losses and launch counts, and the
+       resume (its first run's log directory stays in `tmp` for phase 21).
     3. One loop timing: FCNTrainer over SyntheticDataset(960 images,
        500-512 px) at B=24, 512x512, the compact feed, log flushes at 16: a
        4-step warm-up epoch on 96 other images, then one epoch of 40 steps
@@ -909,10 +1050,7 @@ def phase_train_cli(dev, embed, bare_img_s, log, require) -> dict:
        memory already allocated before the loop's model is logged beside
        them).
     """
-    import tempfile
-
     import torch
-    from zeroshotsemanticsegmentation_tpu_torch.cli import train as cli
     from zeroshotsemanticsegmentation_tpu_torch.configs import get_config
     from zeroshotsemanticsegmentation_tpu_torch.data import (
         BatchLoader, SyntheticDataset)
@@ -924,253 +1062,565 @@ def phase_train_cli(dev, embed, bare_img_s, log, require) -> dict:
     from zeroshotsemanticsegmentation_tpu_torch.train import trainer_fcn
     from zeroshotsemanticsegmentation_tpu_torch.utils import RunLogger
 
-    real_run = cli.run_experiment
+    out = cli_run_and_resume(tmp, "fcn32s", log, require)
+    # 3. the loop: FCNTrainer at B=24 on the compact feed
+    lcfg = get_config(14, batch_size=TRAIN_BATCH,
+                      eval_batch_size=TRAIN_BATCH)
+    loader, warm_loader = (
+        BatchLoader(SyntheticDataset(num_images=n, num_classes=21,
+                                     size_range=(500, 512), seed=seed),
+                    TRAIN_BATCH, bucket_hw=(H, W), shuffle=True,
+                    seed=lcfg.seed, compact=True)
+        for n, seed in ((LOOP_IMAGES, 0), (LOOP_WARMUP_IMAGES, 1)))
+    t0 = time.perf_counter()
+    it = iter(loader)
+    next(it)  # an epoch's start: the first batch off the loader
+    first_batch_s = time.perf_counter() - t0
+    it.close()
+    t0 = time.perf_counter()
+    n_feed = sum(b["num_real"] for b in loader)
+    feed_img_s = n_feed / (time.perf_counter() - t0)
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    model = FCN32s(20, dtype=torch.bfloat16, fused_block1=True,
+                   generator=torch.Generator().manual_seed(lcfg.seed),
+                   device=dev)
+    trainer = FCNTrainer(
+        cfg=lcfg, model=model,
+        optimizer=make_fcn_optimizer(model, optim="adam",
+                                     lr=lcfg.fcn_lr),
+        train_loader=warm_loader, val_loader=loader,
+        logger=RunLogger(osp.join(tmp, "loop"), tensorboard=False,
+                         verbose=False),
+        embeddings=embed, target_embeddings=embed, upscore_trained=False)
+    trainer.train_epoch()  # warm-up
+    trainer.train_loader = loader
+    torch.cuda.synchronize()
+    real_flush = trainer_fcn.StepLogBuffer.flush
+    real_step = trainer._train_step
+    marks, flushes = [], []
 
-    def run_no_viz(cfg, **kw):
-        return real_run(cfg.replace(num_viz=0), **kw)
-
-    def csv_rows(path):
-        with open(path) as f:
-            lines = f.read().splitlines()
-        return [line.split(",") for line in lines[1:]]
-
-    out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        # 1. the two-stage run, launch counts from the loaders' lengths
-        cfg = get_config(14, fcn_epochs=1, seenmask_epochs=1)
-        train_ds, seen_ds, val_ds = cli._build_datasets(
-            cfg, data_dir=tmp, synthetic=True)
-        n_s1 = len(BatchLoader(seen_ds, cfg.batch_size))
-        n_s2 = len(BatchLoader(train_ds, cfg.batch_size))
-        n_val = len(BatchLoader(val_ds, cfg.eval_batch_size))
-        want = {"block1_train_fwd": n_s1, "block1_train_bwd": n_s1,
-                "costail_fwd": n_s1, "costail_bwd": n_s1,
-                "block1_fused": n_s2 + 2 * n_val, "szn_fused": n_val}
-        argv = ["-c", "14", "--synthetic", "-ve", "1", "-se", "1",
-                "-dir", tmp]
-        torch.cuda.synchronize()
-        _kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        with mock.patch.object(cli, "run_experiment", run_no_viz):
-            summary = cli.main(argv)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        got = dict(_kernels.launch_counts)
-        log_dir = summary["log_dir"]
-        log(f"[train cli] {' '.join(argv[:-2])}: {run_s:.1f} s, launches "
-            f"{got}, expected {want}")
-        for name in ("config.yaml", "counts.csv", "train_log.csv",
-                     "val_log.csv", "seenmask_train_log.csv",
-                     "seenmask_val_log.csv", "checkpoint", "best"):
-            require(osp.isfile(osp.join(log_dir, name)),
-                    f"train CLI did not write {name}")
-        s1 = csv_rows(osp.join(log_dir, "train_log.csv"))
-        s2 = csv_rows(osp.join(log_dir, "seenmask_train_log.csv"))
-        losses = [float(r[2]) for r in s1 + s2]
-        require(len(s1) == n_s1 and len(s2) == n_s2,
-                f"train CLI logged {len(s1)} + {len(s2)} steps")
-        require(all(np.isfinite(x) for x in losses),
-                f"train CLI losses {losses}")
-        for key, n in want.items():
-            require(got[key] == n, f"train CLI: {key} launched {got[key]} "
-                    f"times, expected {n}")
-        require(got["pdot"] == 0, f"train CLI launched K7: {got}")
-        out["cli"] = {"seconds": run_s, "launches": got,
-                      "steps": [n_s1, n_s2], "val_batches": n_val,
-                      "losses": losses,
-                      "best_mean_iu": summary["best_mean_iu"],
-                      "seenmask_best_mean_iu":
-                          summary["seenmask_best_mean_iu"]}
-
-        # 2. the resume: parameters and moments as saved, one more epoch
-        path = osp.join(log_dir, "checkpoint")
-        saved = ck.restore_checkpoint(path)
-        os.remove(osp.join(log_dir, "best"))  # disk: one 1.6 GB file less
-        real_train = trainer_fcn.FCNTrainer.train
-        restored = {}
-
-        def checked_train(self):
-            sd = self.state.model.state_dict()
-            restored["params"] = all(
-                torch.equal(sd[k].cpu(), v) for k, v in
-                saved["params"].items())
-            live = self.state.optimizer.state_dict()
-            restored["moments"] = bool(saved["opt_state"]["state"]) and \
-                _nested_equal(live["state"], saved["opt_state"]["state"])
-            restored["groups"] = (live["param_groups"]
-                                  == saved["opt_state"]["param_groups"])
-            restored["start"] = (self.epoch, self.iteration)
-            return real_train(self)
-
-        argv = ["-c", "14", "--synthetic", "-r", path, "-ve", "2", "-se",
-                "0", "-dir", tmp]
-        _kernels.reset_launch_counts()
-        with mock.patch.object(cli, "run_experiment", run_no_viz), \
-                mock.patch.object(trainer_fcn.FCNTrainer, "train",
-                                  checked_train):
-            resumed = cli.main(argv)
-        torch.cuda.synchronize()
-        got = dict(_kernels.launch_counts)
-        r1 = csv_rows(osp.join(resumed["log_dir"], "train_log.csv"))
-        log(f"[train cli] resume from {saved['epoch']}/{saved['iteration']}: "
-            f"{restored}, {len(r1)} steps, launches {got}")
-        require(restored.get("params") and restored.get("moments")
-                and restored.get("groups"),
-                f"resume did not restore the checkpoint bit-equal: "
-                f"{restored}")
-        # the run's last save is stage 2's: it keeps stage 1's counters
-        require(restored["start"] == (saved["epoch"] + 1, n_s1)
-                and saved["iteration"] == n_s1,
-                f"resume starts at {restored['start']}, stage 1 ran {n_s1} "
-                "steps")
-        require(len(r1) == n_s1 and {r[0] for r in r1} == {"1"},
-                f"resume trained {len(r1)} steps: {r1}")
-        require(got["costail_fwd"] == n_s1 and got["szn_fused"] == n_val
-                and got["pdot"] == 0, f"resume launches {got}")
-        out["resume"] = {"restored": restored, "steps": len(r1)}
-        del saved
-        shutil.rmtree(log_dir)
-        shutil.rmtree(resumed["log_dir"])
-
-        # 3. the loop: FCNTrainer at B=24 on the compact feed
-        lcfg = get_config(14, batch_size=TRAIN_BATCH,
-                          eval_batch_size=TRAIN_BATCH)
-        loader, warm_loader = (
-            BatchLoader(SyntheticDataset(num_images=n, num_classes=21,
-                                         size_range=(500, 512), seed=seed),
-                        TRAIN_BATCH, bucket_hw=(H, W), shuffle=True,
-                        seed=lcfg.seed, compact=True)
-            for n, seed in ((LOOP_IMAGES, 0), (LOOP_WARMUP_IMAGES, 1)))
-        t0 = time.perf_counter()
-        it = iter(loader)
-        next(it)  # an epoch's start: the first batch off the loader
-        first_batch_s = time.perf_counter() - t0
-        it.close()
-        t0 = time.perf_counter()
-        n_feed = sum(b["num_real"] for b in loader)
-        feed_img_s = n_feed / (time.perf_counter() - t0)
-        base_gb = torch.cuda.memory_allocated() / 1e9
-        model = FCN32s(20, dtype=torch.bfloat16, fused_block1=True,
-                       generator=torch.Generator().manual_seed(lcfg.seed),
-                       device=dev)
-        trainer = FCNTrainer(
-            cfg=lcfg, model=model,
-            optimizer=make_fcn_optimizer(model, optim="adam",
-                                         lr=lcfg.fcn_lr),
-            train_loader=warm_loader, val_loader=loader,
-            logger=RunLogger(osp.join(tmp, "loop"), tensorboard=False,
-                             verbose=False),
-            embeddings=embed, target_embeddings=embed, upscore_trained=False)
-        trainer.train_epoch()  # warm-up
-        trainer.train_loader = loader
-        torch.cuda.synchronize()
-        real_flush = trainer_fcn.StepLogBuffer.flush
-        real_step = trainer._train_step
-        marks, flushes = [], []
-
-        def flush_synced(self):  # a flush reads back by design
-            if self._pending:
-                flushes.append(len(marks))
-            torch.cuda.set_sync_debug_mode("default")
-            try:
-                real_flush(self)
-            finally:
-                torch.cuda.set_sync_debug_mode("error")
-
-        def marked_step(*a):  # (host time at the call, event after it)
-            t = time.perf_counter()
-            res = real_step(*a)
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.append((t, ev))
-            return res
-
-        torch.cuda.reset_peak_memory_stats()
-        _kernels.reset_launch_counts()
-        trainer.epoch = 1
-        trainer._train_step = marked_step
-        t0 = time.perf_counter()
+    def flush_synced(self):  # a flush reads back by design
+        if self._pending:
+            flushes.append(len(marks))
+        torch.cuda.set_sync_debug_mode("default")
         try:
+            real_flush(self)
+        finally:
             torch.cuda.set_sync_debug_mode("error")
-            with mock.patch.object(trainer_fcn.StepLogBuffer, "flush",
-                                   flush_synced):
-                trainer.train_epoch()
+
+    def marked_step(*a):  # (host time at the call, event after it)
+        t = time.perf_counter()
+        res = real_step(*a)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((t, ev))
+        return res
+
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    trainer.epoch = 1
+    trainer._train_step = marked_step
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        with mock.patch.object(trainer_fcn.StepLogBuffer, "flush",
+                               flush_synced):
+            trainer.train_epoch()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        trainer._train_step = real_step
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    got = dict(_kernels.launch_counts)
+    n_steps, n_warm = len(loader), len(warm_loader)
+    require(got["costail_fwd"] == n_steps
+            and got["block1_train_bwd"] == n_steps
+            and len(marks) == n_steps,
+            f"loop launches {got} for {n_steps} steps")
+    fs = lcfg.log_flush_steps
+    require(flushes == [*range(fs, n_steps, fs), n_steps]
+            and len(flushes) >= 3,
+            f"loop flushed after steps {flushes}")
+    first_wait_s = marks[0][0] - t0
+    steady_s = marks[0][1].elapsed_time(marks[-1][1]) / 1e3
+    steady_img_s = (n_steps - 1) * TRAIN_BATCH / steady_s
+    rows = csv_rows(osp.join(tmp, "loop", "train_log.csv"))
+    require(len(rows) == n_warm + n_steps
+            and all(np.isfinite(float(r[2])) for r in rows),
+            f"loop rows {rows}")
+    # the bare step on the same trainer, in this phase: one batch
+    # resident on the card, no feed, no logging
+    dbatch = trainer_fcn.take_batch(*trainer_fcn.put_batch(
+        next(iter(loader)), dev))
+
+    def bare_step():
+        trainer.state, _ = trainer._train_step(
+            trainer.state, dbatch, trainer._generator)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bare_ms = time_ms(bare_step, iters=8, warmup=1)
+    bare_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del dbatch
+    t0 = time.perf_counter()
+    ck.save_checkpoint(osp.join(tmp, "save"),
+                       model_state=model.state_dict(),
+                       optim_state=trainer.state.optimizer.state_dict(),
+                       epoch=1, iteration=trainer.iteration,
+                       best_mean_iu=0.0, is_best=True)
+    save_s = time.perf_counter() - t0
+    save_gb = os.path.getsize(osp.join(tmp, "save", "checkpoint")) / 1e9
+    loop_img_s = n_steps * TRAIN_BATCH / loop_s
+    bare_here = TRAIN_BATCH / (bare_ms / 1e3)
+    out["loop"] = {
+        "batch": TRAIN_BATCH, "hw": [H, W], "dtype": "bfloat16",
+        "steps": n_steps, "images": LOOP_IMAGES,
+        "warmup_steps": n_warm,
+        "log_flush_steps": fs, "flushes_after_steps": flushes,
+        "seconds": loop_s, "images_per_s": loop_img_s,
+        "first_step_wait_s": first_wait_s,
+        "steady_seconds": steady_s,
+        "steady_images_per_s": steady_img_s,
+        "steady_host_ms_per_step":
+            1e3 * (marks[-1][0] - marks[0][0]) / (n_steps - 1),
+        "bare_step_images_per_s": bare_here,
+        "bare_step_ms": bare_ms,
+        "phase10_bare_step_images_per_s": bare_img_s,
+        "loop_over_bare": loop_img_s / bare_here,
+        "steady_over_bare": steady_img_s / bare_here,
+        "overhead_ms_per_step": 1e3 * loop_s / n_steps - bare_ms,
+        "steady_overhead_ms_per_step":
+            1e3 * steady_s / (n_steps - 1) - bare_ms,
+        "first_batch_s": first_batch_s,
+        "feed_alone_images_per_s": feed_img_s,
+        "allocated_before_gb": base_gb,
+        "max_memory_allocated_gb": peak_gb,
+        "bare_step_max_memory_allocated_gb": bare_peak_gb,
+        "checkpoint_save_s": save_s, "checkpoint_gb": save_gb,
+        "syncs_between_flushes": 0}
+    log(json.dumps({"train_loop": out["loop"]}))
+    del trainer, model
+    out["launches"] = out["cli"]["launches"]
+    return out
+
+
+def profile_window(fn, iters: int, top: int = 12) -> dict:
+    """One torch.profiler window (CPU and CUDA activity) of `iters` calls of
+    `fn` after a warm-up call: the window's wall ms a call, the device
+    kernels' ms a call, the device's idle share (1 - kernels / wall) and the
+    `top` device operations by self device time. A window with no device
+    time recorded is profiled again, up to three windows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+        # device kernels only: a user annotation such as the optimizer's
+        # "Optimizer.step#Adam.step" has a device range over the kernels
+        # (scripts/torch_train_profile.py leaves them out the same way)
+        events = [e for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.key.startswith("Optimizer.")]
+        kern_ms = sum(e.self_device_time_total for e in events) / 1e3 / iters
+        if kern_ms > 0:
+            break
+        log("[profiler] no device time recorded in the window; profiling "
+            "again")
+    else:
+        fail("torch.profiler recorded no device time in three windows")
+    rows = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    return {"wall_ms": wall_ms, "device_kernel_ms": kern_ms,
+            "idle_share": 1 - kern_ms / wall_ms,
+            "top": [{"name": e.key[:90],
+                     "ms": e.self_device_time_total / 1e3 / iters,
+                     "calls": e.count / iters} for e in rows]}
+
+
+def phase_fcn8s_int8(dev, embed, serve_bf16_ms, ckpt32, tmp, train_batch,
+                     plain_training, flip_rate, log, require) -> dict:
+    """Phase 21: FCN-8s through serving, both training stages and the train
+    CLI, the predict and export CLIs, and int8 serving, at full width,
+    512x512, with the bundled 20-dim pascal embeddings (21 classes, unseen
+    [1, 13]) and seeded random weights; FCN-8s's skip heads seeded non-zero
+    except where a fresh model is the point ((b): they must move from
+    zero).
+
+    (a) FCN-8s serving (bf16, B=64, the unfused full-resolution route): K2
+        once a call and K1 never; labels vs the same predictor with K2
+        through its plain version; the serving bf16 bar on 8 images (bf16
+        labels through K2 at most 2x as far from fp32's as with block 1
+        through its plain version); at B=2 in fp32 K2 vs its plain version,
+        flip rate < 1e-4; ms/batch, MP/s, peak memory and a profile window.
+    (b) FCN-8s stage 1: three B=24 steps (cos loss, fused tail, Adam lr
+        1e-5, dropout 0.5 from a seeded CUDA generator), K3-K6 once a step
+        and K2 never, finite losses, the zero-initialised skip heads moved,
+        the last step with host syncs as errors; one fp32 B=2 step through
+        the kernels vs their plain versions (each gradient's relative norm
+        < 1e-4); ms/step, img/s, peak memory and a profile window.
+    (c) FCN-8s stage 2: one B=24 step (dot-free mode off): K2 once, K3/K4
+        never, `seenmask_score` moved and every other parameter
+        bit-identical.
+    (d) the train CLI with `--arch fcn8s` (`cli_run_and_resume`): K1 never
+        (the unfused eval), the checkpoint's arch "FCN8s", the resume.
+    (e) the predict CLI on arrays: `build_predictor` from phase 20's FCN-32s
+        checkpoint (`ckpt32`) and from (d)'s FCN-8s one, `predict_arrays`
+        over 6 images below the bucket at batch 4 (a tail batch of 2) equal
+        to each predictor called on the same padded batches and cropped;
+        `--int8` on the FCN-32s checkpoint (K1, no K2), its flip rate vs
+        the bf16 labels.
+    (f) the export CLI on phase 20's checkpoint: the round trip verified,
+        the file reloaded into the port bit-equal; (d)'s FCN-8s checkpoint
+        refused.
+    (g) int8 serving of FCN-32s at B=64: K1 once a call and K2 never, label
+        flips vs the bf16 predictor on the same weights < 0.08 (the JAX
+        bar), ms/batch and MP/s beside the bf16 predictor's in turns (bf16,
+        int8, int8, bf16) and phase 6's, peak memory and a profile window.
+    Each peak memory stands beside the memory already allocated before it
+    (the weights of this phase and earlier phases' tensors).
+    """
+    import contextlib
+    import io
+    import math
+
+    import torch
+    from zeroshotsemanticsegmentation_tpu_torch.cli import export as cexp
+    from zeroshotsemanticsegmentation_tpu_torch.cli import predict as cpred
+    from zeroshotsemanticsegmentation_tpu_torch.configs import get_config
+    from zeroshotsemanticsegmentation_tpu_torch.data.transforms import (
+        transform_image)
+    from zeroshotsemanticsegmentation_tpu_torch.models import FCN8s, FCN32s
+    from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
+    from zeroshotsemanticsegmentation_tpu_torch.ops import (
+        block1_fused as b1)
+    from zeroshotsemanticsegmentation_tpu_torch.ops.metrics import (
+        unseen_mask_vector)
+    from zeroshotsemanticsegmentation_tpu_torch.serving import (
+        make_szn_predictor)
+    from zeroshotsemanticsegmentation_tpu_torch.train import (
+        TrainState, make_fcn_optimizer, make_fcn_train_step,
+        make_seenmask_optimizer, make_seenmask_train_step)
+    from zeroshotsemanticsegmentation_tpu_torch.train import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    bf, f32 = torch.bfloat16, torch.float32
+    k_cls = embed.shape[0]
+    rng = np.random.RandomState(21)
+    out = {}
+
+    def counts():
+        torch.cuda.synchronize()
+        return dict(_kernels.launch_counts)
+
+    def fcn8s(dtype, seed=0, skips=True, dropout=0.5):
+        m = FCN8s(20, dtype=dtype, fused_block1=True, dropout_rate=dropout,
+                  generator=torch.Generator().manual_seed(seed), device=dev)
+        if skips:  # seeded LeCun-normal skip heads, small biases
+            g = torch.Generator().manual_seed(seed + 100)
+            with torch.no_grad():
+                for name in ("score_pool3", "score_pool4"):
+                    conv = getattr(m, name)
+                    conv.weight.copy_(torch.randn(
+                        conv.weight.shape, generator=g)
+                        / math.sqrt(conv.weight[0].numel()))
+                    conv.bias.copy_(0.1 * torch.randn(conv.bias.shape,
+                                                      generator=g))
+        return m
+
+    plain_k2 = mock.patch.object(b1, "block1_op", b1.block1_plain)
+
+    raw8 = rng.randint(0, 256, (8, H, W, 3)).astype(np.uint8)
+    x8 = torch.from_numpy(np.stack([transform_image(r) for r in raw8])).to(
+        dev)
+    x64 = x8.repeat(SERVE_BATCH // 8, 1, 1, 1)
+    x64 = x64 + torch.randn_like(x64)
+
+    # ---- (a) FCN-8s serving ---------------------------------------------
+    serve8 = make_szn_predictor(fcn8s(bf), None, embed, UNSEEN)
+    serve8(x8[:2])
+    _kernels.reset_launch_counts()
+    lab64 = serve8(x64)
+    serve_launches = counts()
+    log(f"[fcn8s serve] B={SERVE_BATCH} launches {serve_launches}")
+    require(serve_launches["block1_fused"] == 1
+            and serve_launches["szn_fused"] == 0,
+            f"FCN-8s serving: K2 once and K1 never a call, got "
+            f"{serve_launches}")
+    require(tuple(lab64.shape) == (SERVE_BATCH, H, W)
+            and lab64.dtype == torch.int32 and lab64.min().item() >= 0
+            and lab64.max().item() < k_cls, "FCN-8s labels")
+    with plain_k2:
+        lab64_plain = serve8(x64)
+    flip_k2 = flip_rate(lab64, lab64_plain)
+    # the serving bf16 bar on 8 images: fp32 (TF32 off) labels as the
+    # reference, bf16 through K2 and bf16 with block 1's plain version
+    ref8 = make_szn_predictor(fcn8s(f32), None, embed, UNSEEN)(x8)
+    kern8 = serve8(x8)
+    with plain_k2:
+        plain8 = serve8(x8)
+    bar = {"flip_kernels": flip_rate(kern8, ref8),
+           "flip_plain": flip_rate(plain8, ref8)}
+    pred32 = make_szn_predictor(fcn8s(f32), None, embed, UNSEEN)
+    got2 = pred32(x8[:2])
+    with plain_k2:
+        want2 = pred32(x8[:2])
+    flip32 = flip_rate(got2, want2)
+    log(f"[fcn8s serve] bf16 B=64 flip rate K2 vs plain {flip_k2:.3e}; "
+        f"bf16 bar vs fp32: kernels {bar['flip_kernels']:.4e}, plain "
+        f"{bar['flip_plain']:.4e}; fp32 B=2 kernels vs plain {flip32:.3e}")
+    require(bar["flip_kernels"] <= 2 * bar["flip_plain"],
+            f"FCN-8s bf16 serving flips {bar} break the serving bf16 bar")
+    require(flip32 < 1e-4, f"FCN-8s fp32 flip rate {flip32} >= 1e-4")
+    del ref8, kern8, plain8, pred32, lab64_plain
+    torch.cuda.synchronize()
+    base8 = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ms8 = time_ms(lambda: serve8(x64), iters=3)
+    peak8 = torch.cuda.max_memory_allocated() / 1e9
+    prof_serve = profile_window(lambda: serve8(x64), iters=2)
+    out["serve"] = {"batch": SERVE_BATCH, "hw": [H, W], "dtype": "bfloat16",
+                    "ms_per_batch": ms8,
+                    "megapixels_per_s": SERVE_BATCH * H * W / (ms8 * 1e3),
+                    "max_memory_allocated_gb": peak8,
+                    "allocated_before_gb": base8,
+                    "flip_k2_vs_plain": flip_k2, "bar": bar,
+                    "flip_fp32_b2": flip32, "launches": serve_launches,
+                    "profile": prof_serve}
+    log(json.dumps({"fcn8s_serving": out["serve"]}))
+    del serve8
+
+    # ---- (b) FCN-8s stage 1 ----------------------------------------------
+    step = make_fcn_train_step(loss_name="cos", num_classes=k_cls,
+                               embeddings=embed)
+    tm = fcn8s(bf, skips=False)
+    tst = TrainState.create(tm, make_fcn_optimizer(tm, optim="adam",
+                                                   lr=1e-5))
+    tgen = torch.Generator(device=dev).manual_seed(0)
+    tbatch = train_batch(TRAIN_BATCH, 0)
+    _kernels.reset_launch_counts()
+    losses = []
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_STEPS - 1:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            tst, aux = step(tst, tbatch, tgen)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-            trainer._train_step = real_step
-        torch.cuda.synchronize()
-        loop_s = time.perf_counter() - t0
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        got = dict(_kernels.launch_counts)
-        n_steps, n_warm = len(loader), len(warm_loader)
-        require(got["costail_fwd"] == n_steps
-                and got["block1_train_bwd"] == n_steps
-                and len(marks) == n_steps,
-                f"loop launches {got} for {n_steps} steps")
-        fs = lcfg.log_flush_steps
-        require(flushes == [*range(fs, n_steps, fs), n_steps]
-                and len(flushes) >= 3,
-                f"loop flushed after steps {flushes}")
-        first_wait_s = marks[0][0] - t0
-        steady_s = marks[0][1].elapsed_time(marks[-1][1]) / 1e3
-        steady_img_s = (n_steps - 1) * TRAIN_BATCH / steady_s
-        rows = csv_rows(osp.join(tmp, "loop", "train_log.csv"))
-        require(len(rows) == n_warm + n_steps
-                and all(np.isfinite(float(r[2])) for r in rows),
-                f"loop rows {rows}")
-        # the bare step on the same trainer, in this phase: one batch
-        # resident on the card, no feed, no logging
-        dbatch = trainer_fcn.take_batch(*trainer_fcn.put_batch(
-            next(iter(loader)), dev))
+        losses.append(aux["loss"])
+    train_launches = counts()
+    losses = [x.item() for x in losses]
+    moved = {n: getattr(tm, n).weight.abs().max().item()
+             for n in ("score_pool3", "score_pool4")}
+    log(f"[fcn8s train] {TRAIN_STEPS} B={TRAIN_BATCH} steps: launches "
+        f"{train_launches}, losses {losses}, skip heads' max |w| {moved}")
+    for key in ("block1_train_fwd", "block1_train_bwd", "costail_fwd",
+                "costail_bwd"):
+        require(train_launches[key] == TRAIN_STEPS,
+                f"FCN-8s stage 1: {key} launched {train_launches[key]} "
+                f"times in {TRAIN_STEPS} steps")
+    require(train_launches["block1_fused"] == 0,
+            f"K2 ran under FCN-8s training: {train_launches}")
+    require(all(np.isfinite(x) for x in losses), f"losses {losses}")
+    require(all(v > 0 for v in moved.values()),
+            f"the skip heads did not move from zero: {moved}")
 
-        def bare_step():
-            trainer.state, _ = trainer._train_step(
-                trainer.state, dbatch, trainer._generator)
+    def b2_grads(routing):
+        m = fcn8s(f32, seed=1)
+        st = TrainState.create(m, make_fcn_optimizer(m, optim="adam",
+                                                     lr=1e-5))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        with routing:
+            _, aux = step(st, train_batch(2, 1), gen)
+        grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()
+                 if p.grad is not None}
+        return aux["loss"].item(), grads
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        bare_ms = time_ms(bare_step, iters=8, warmup=1)
-        bare_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        del dbatch
-        t0 = time.perf_counter()
-        ck.save_checkpoint(osp.join(tmp, "save"),
-                           model_state=model.state_dict(),
-                           optim_state=trainer.state.optimizer.state_dict(),
-                           epoch=1, iteration=trainer.iteration,
-                           best_mean_iu=0.0, is_best=True)
-        save_s = time.perf_counter() - t0
-        save_gb = os.path.getsize(osp.join(tmp, "save", "checkpoint")) / 1e9
-        loop_img_s = n_steps * TRAIN_BATCH / loop_s
-        bare_here = TRAIN_BATCH / (bare_ms / 1e3)
-        out["loop"] = {
-            "batch": TRAIN_BATCH, "hw": [H, W], "dtype": "bfloat16",
-            "steps": n_steps, "images": LOOP_IMAGES,
-            "warmup_steps": n_warm,
-            "log_flush_steps": fs, "flushes_after_steps": flushes,
-            "seconds": loop_s, "images_per_s": loop_img_s,
-            "first_step_wait_s": first_wait_s,
-            "steady_seconds": steady_s,
-            "steady_images_per_s": steady_img_s,
-            "steady_host_ms_per_step":
-                1e3 * (marks[-1][0] - marks[0][0]) / (n_steps - 1),
-            "bare_step_images_per_s": bare_here,
-            "bare_step_ms": bare_ms,
-            "phase10_bare_step_images_per_s": bare_img_s,
-            "loop_over_bare": loop_img_s / bare_here,
-            "steady_over_bare": steady_img_s / bare_here,
-            "overhead_ms_per_step": 1e3 * loop_s / n_steps - bare_ms,
-            "steady_overhead_ms_per_step":
-                1e3 * steady_s / (n_steps - 1) - bare_ms,
-            "first_batch_s": first_batch_s,
-            "feed_alone_images_per_s": feed_img_s,
-            "allocated_before_gb": base_gb,
-            "max_memory_allocated_gb": peak_gb,
-            "bare_step_max_memory_allocated_gb": bare_peak_gb,
-            "checkpoint_save_s": save_s, "checkpoint_gb": save_gb,
-            "syncs_between_flushes": 0}
-        log(json.dumps({"train_loop": out["loop"]}))
-        del trainer, model
-    out["launches"] = out["cli"]["launches"]
+    loss_k, grads_k = b2_grads(contextlib.nullcontext())
+    loss_p, grads_p = b2_grads(plain_training())
+    require(set(grads_k) == set(grads_p), "FCN-8s gradient sets differ")
+    grad_rels = {n: rel(grads_k[n], grads_p[n]) for n in grads_p}
+    worst = max(grad_rels, key=grad_rels.get)
+    log(f"[fcn8s train] fp32 B=2 kernels vs plain: loss {loss_k:.7f} vs "
+        f"{loss_p:.7f}, worst gradient rel-norm {grad_rels[worst]:.3e} "
+        f"({worst}); score_pool3.weight "
+        f"{grad_rels['score_pool3.weight']:.1e}, score_pool4.weight "
+        f"{grad_rels['score_pool4.weight']:.1e}")
+    require(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p), "FCN-8s fp32 loss")
+    require(grad_rels[worst] < 1e-4,
+            f"FCN-8s fp32 gradient {worst} rel {grad_rels[worst]}")
+    del grads_k, grads_p
+    torch.cuda.synchronize()
+    tbase = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(tst, tbatch, tgen), iters=TIMED_STEPS,
+                      warmup=1)
+    tpeak = torch.cuda.max_memory_allocated() / 1e9
+    prof_train = profile_window(lambda: step(tst, tbatch, tgen), iters=2)
+    out["train"] = {"batch": TRAIN_BATCH, "hw": [H, W], "dtype": "bfloat16",
+                    "ms_per_step": step_ms,
+                    "images_per_s": TRAIN_BATCH / (step_ms / 1e3),
+                    "max_memory_allocated_gb": tpeak,
+                    "allocated_before_gb": tbase, "losses": losses,
+                    "launches": train_launches,
+                    "fp32_b2_worst_grad_rel": [worst, grad_rels[worst]],
+                    "profile": prof_train}
+    log(json.dumps({"fcn8s_train": out["train"]}))
+    del tst, tm, tbatch
+
+    # ---- (c) FCN-8s stage 2 ----------------------------------------------
+    sm = fcn8s(bf)
+    before = {n: p.detach().clone() for n, p in sm.named_parameters()}
+    sst = TrainState.create(sm, make_seenmask_optimizer(sm, lr=1e-3))
+    sstep = make_seenmask_train_step(
+        seen_vec=~unseen_mask_vector(k_cls, UNSEEN))
+    sbatch = train_batch(TRAIN_BATCH, 3)
+    _kernels.reset_launch_counts()
+    sst, saux = sstep(sst, sbatch, torch.Generator(device=dev).manual_seed(0))
+    s2_launches = counts()
+    log(f"[fcn8s stage2] launches {s2_launches}, loss "
+        f"{saux['loss'].item():.6f}")
+    require(s2_launches["block1_fused"] == 1
+            and s2_launches["block1_train_fwd"] == 0
+            and s2_launches["block1_train_bwd"] == 0
+            and s2_launches["pdot"] == 0,
+            f"FCN-8s stage 2 (dot-free mode off): K2 once, K3/K4 and K7 "
+            f"never, got {s2_launches}")
+    require(np.isfinite(saux["loss"].item()), "FCN-8s stage-2 loss")
+    for n, p in sm.named_parameters():
+        changed = not torch.equal(p.detach(), before[n])
+        require(changed == n.startswith("seenmask_score"),
+                f"FCN-8s stage 2: {n} {'moved' if changed else 'stayed'}")
+    out["stage2"] = {"launches": s2_launches, "loss": saux["loss"].item()}
+    del sm, sst, before, sbatch
+
+    # ---- (d) the train CLI with --arch fcn8s -------------------------------
+    cli8 = cli_run_and_resume(tmp, "fcn8s", log, require)
+    ckpt8 = cli8["checkpoint"]
+    out["cli"] = {k: cli8[k] for k in ("cli", "resume")}
+
+    # ---- (e) the predict CLI on arrays -------------------------------------
+    sizes = [(h * H // 512, w * W // 512) for h, w in (
+        (375, 500), (512, 512), (333, 512), (512, 287), (200, 200),
+        (480, 360))]
+    imgs = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            for h, w in sizes]
+    preds, pred_launches, labels = {}, {}, {}
+    for name, cfg, path, int8 in (
+            ("fcn32s", get_config(14), ckpt32, False),
+            ("fcn8s", get_config(14, arch="fcn8s"), ckpt8, False),
+            ("fcn32s_int8", get_config(14), ckpt32, True)):
+        predict, names, trained = cpred.build_predictor(cfg, path,
+                                                        int8=int8)
+        _kernels.reset_launch_counts()
+        labs = cpred.predict_arrays(predict, imgs, bucket=cfg.bucket,
+                                    batch_size=4)
+        pred_launches[name] = counts()
+        for i in range(0, len(imgs), 4):  # the same padded batches, direct
+            batch = np.zeros((4, H, W, 3), np.uint8)
+            for j, img in enumerate(imgs[i:i + 4]):
+                batch[j, :img.shape[0], :img.shape[1]] = img
+            direct = predict(torch.from_numpy(batch)).cpu().numpy()
+            for j, img in enumerate(imgs[i:i + 4]):
+                h, w = img.shape[:2]
+                require(labs[i + j].shape == (h, w) and np.array_equal(
+                    labs[i + j], direct[j, :h, :w]),
+                    f"predict_arrays {name}: image {i + j} differs from the "
+                    "predictor's own labels")
+        labels[name] = labs
+        preds[name] = {"upscore_trained": trained, "classes": len(names),
+                       "launches": pred_launches[name]}
+        del predict
+    int8_flips = float(np.mean(np.concatenate([
+        (a != b).ravel() for a, b in zip(labels["fcn32s_int8"],
+                                         labels["fcn32s"])])))
+    log(f"[predict cli] {preds}; int8 vs bf16 label flips {int8_flips:.4f}")
+    require(pred_launches["fcn32s"]["szn_fused"] > 0
+            and pred_launches["fcn8s"]["szn_fused"] == 0
+            and pred_launches["fcn8s"]["block1_fused"] == 2
+            and pred_launches["fcn32s_int8"]["block1_fused"] == 0
+            and pred_launches["fcn32s_int8"]["szn_fused"] > 0,
+            f"predict CLI launches {pred_launches}")
+    require(int8_flips < 0.08, f"predict CLI int8 flips {int8_flips}")
+    out["predict"] = {"predictors": preds, "images": [list(s) for s in sizes],
+                      "batch_size": 4, "int8_vs_bf16_flips": int8_flips}
+
+    # ---- (f) the export CLI ----------------------------------------------
+    exported = osp.join(tmp, "exported")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cexp.main([ckpt32, "-o", exported])
+    log(f"[export cli] {buf.getvalue().strip()}")
+    require("round-trip verified" in buf.getvalue(), "export CLI summary")
+    back = ck.restore_checkpoint(exported)["params"]
+    src = ck.restore_checkpoint(ckpt32)["params"]
+    reloaded = FCN32s(20, device=dev)
+    reloaded.load_state_dict(back, strict=True)
+    require(sorted(back) == sorted(src) and all(
+        torch.equal(reloaded.state_dict()[k].cpu(), v)
+        for k, v in src.items()), "the export does not reload bit-equal")
+    try:
+        cexp.main([ckpt8, "-o", osp.join(tmp, "exported8")])
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    require(refused is not None and "FCN8s trees are not exportable"
+            in refused, f"the export CLI took an FCN-8s checkpoint: "
+            f"{refused}")
+    out["export"] = {"summary": buf.getvalue().strip(),
+                     "fcn8s_refusal": refused}
+    del back, src, reloaded
+
+    # ---- (g) int8 serving ------------------------------------------------
+    m32 = FCN32s(20, dtype=bf, fused_block1=True,
+                 generator=torch.Generator().manual_seed(0), device=dev)
+    serve_bf = make_szn_predictor(m32, None, embed, UNSEEN)
+    serve_i8 = make_szn_predictor(m32, None, embed, UNSEEN, int8=True)
+    serve_i8(x8[:2])
+    torch.cuda.synchronize()
+    i8_base = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    li = serve_i8(x64)
+    i8_launches = counts()
+    i8_peak = torch.cuda.max_memory_allocated() / 1e9
+    lb = serve_bf(x64)
+    i8_flips = flip_rate(li, lb)
+    log(f"[int8 serve] B={SERVE_BATCH} launches {i8_launches}, flips vs "
+        f"bf16 {i8_flips:.4f}, peak {i8_peak:.2f} GB")
+    require(i8_launches["szn_fused"] == 1
+            and i8_launches["block1_fused"] == 0,
+            f"int8 serving: K1 once and K2 never a call, got {i8_launches}")
+    require(i8_flips < 0.08, f"int8 flips vs bf16 {i8_flips} >= 0.08")
+    turns = {"bfloat16": [], "int8": []}
+    for name, fn in (("bfloat16", serve_bf), ("int8", serve_i8),
+                     ("int8", serve_i8), ("bfloat16", serve_bf)):
+        turns[name].append(time_ms(lambda fn=fn: fn(x64), iters=2))
+    prof_i8 = profile_window(lambda: serve_i8(x64), iters=1)
+    out["int8"] = {
+        "batch": SERVE_BATCH, "hw": [H, W], "launches": i8_launches,
+        "flips_vs_bf16": i8_flips, "ms_per_batch": turns,
+        "megapixels_per_s": {k: [SERVE_BATCH * H * W / (t * 1e3) for t in v]
+                             for k, v in turns.items()},
+        "phase6_bf16_ms_per_batch": serve_bf16_ms,
+        "max_memory_allocated_gb": i8_peak, "allocated_before_gb": i8_base,
+        "profile": prof_i8,
+        "order": "bf16, int8, int8, bf16"}
+    log(json.dumps({"int8_serving": out["int8"]}))
+    del serve_bf, serve_i8, m32, li, lb, x64, x8
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[phase 21] {out['seconds']:.1f} s")
+    out["launches"] = {"fcn8s_serve": serve_launches,
+                       "fcn8s_train": train_launches,
+                       "fcn8s_cli": cli8["cli"]["launches"],
+                       "int8_serve": i8_launches}
     return out
 
 
@@ -2248,9 +2698,21 @@ def main() -> None:
     # ---- 19. the H2D probe's two kernel modes -------------------------------
     probe = phase_probe(log, require)
 
-    # ---- 20. the train CLI on the card ----------------------------------------
-    tcli = phase_train_cli(dev, embed, img_s, log, require)
-    cli_launches = tcli["launches"]
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 20. the train CLI on the card --------------------------------
+        tcli = phase_train_cli(dev, embed, img_s, tmp, log, require)
+        cli_launches = tcli["launches"]
+
+        # ---- 21. FCN-8s, the predict and export CLIs, int8 serving --------
+        p21 = phase_fcn8s_int8(dev, embed, ms, tcli["checkpoint"], tmp,
+                               train_batch, plain_training, flip_rate, log,
+                               require)
+    l21 = p21["launches"]
+
+    def launches21(key: str) -> dict:
+        """One kernel's launches on phase 21's paths."""
+        return {f"launches_{path}": counts[key]
+                for path, counts in l21.items()}
 
     src = "zeroshotsemanticsegmentation_tpu_torch/csrc/"
     ref = "zeroshotsemanticsegmentation_tpu/ops/"
@@ -2260,6 +2722,7 @@ def main() -> None:
          "replaces": ref + "szn_fused.py:44",
          "launches": launches["szn_fused"],
          "launches_train_cli": cli_launches["szn_fused"],
+         **launches21("szn_fused"),
          "launches_eval": evals["k1_launches"], "max_abs_err": k1_maxerr,
          "flip_rate": k1_flips, "flip_rate_k33": k33_flips,
          "flip_rate_ties": tie_flips, "ms": k1_ms,
@@ -2272,6 +2735,7 @@ def main() -> None:
          "replaces": ref + "block1_fused.py:485",
          "launches": launches["block1_fused"],
          "launches_train_cli": cli_launches["block1_fused"],
+         **launches21("block1_fused"),
          "max_abs_err": k2_bf16_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms,
@@ -2286,7 +2750,9 @@ def main() -> None:
          "source": src + "block1_train.cu",
          "replaces": ref + "block1_fused.py:288",
          "launches": tlaunches["block1_train_fwd"],
-         "launches_train_cli": cli_launches["block1_train_fwd"], "max_abs_err": k3_err,
+         "launches_train_cli": cli_launches["block1_train_fwd"],
+         **launches21("block1_train_fwd"),
+         "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": k3_lib_ms,
          "shape": [TRAIN_BATCH, hc, hc, 64], "dtype": "bfloat16",
@@ -2299,7 +2765,9 @@ def main() -> None:
          "source": src + "block1_train.cu",
          "replaces": ref + "block1_fused.py:676",
          "launches": tlaunches["block1_train_bwd"],
-         "launches_train_cli": cli_launches["block1_train_bwd"], "max_abs_err": k4_err,
+         "launches_train_cli": cli_launches["block1_train_bwd"],
+         **launches21("block1_train_bwd"),
+         "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": k4_lib_ms,
          "shape": [TRAIN_BATCH, hc, hc, 64], "dtype": "bfloat16",
@@ -2316,6 +2784,7 @@ def main() -> None:
          "replaces": ref + "costail_fused.py:108",
          "launches": tlaunches["costail_fwd"],
          "launches_train_cli": cli_launches["costail_fwd"],
+         **launches21("costail_fwd"),
          "max_abs_err": tail_errs[20][0], "ms": tail20["k5_ms"],
          "device_ms": tail20["k5_device_ms"],
          "bound_share": tail20["k5_share"],
@@ -2343,6 +2812,7 @@ def main() -> None:
          "replaces": ref + "costail_fused.py:145",
          "launches": tlaunches["costail_bwd"],
          "launches_train_cli": cli_launches["costail_bwd"],
+         **launches21("costail_bwd"),
          "max_abs_err": tail_errs[20][1], "ms": tail20["k6_ms"],
          "device_ms": tail20["k6_device_ms"],
          "bound_share": tail20["k6_share"],
@@ -2363,6 +2833,7 @@ def main() -> None:
          "replaces": ref + "pdot.py:47",
          "launches": dlaunches["pdot"],
          "launches_train_cli": cli_launches["pdot"],
+         **launches21("pdot"),
          "launches_stage2_dot_free": STAGE2_STEPS,
          "max_abs_err": fc6_row["max_abs_err"], "ms": fc6_row["ms"],
          "plain_ms": fc6_row["plain_ms"], "bound_ms": fc6_row["bound_ms"],
@@ -2380,7 +2851,9 @@ def main() -> None:
         {"name": "conv1_1_pairs", "route": "cuda",
          "source": src + "conv1_1.cu",
          "replaces": ref + "block1_fused.py:201",
-         "launches": c11["launches"], "max_abs_err": c11["max_abs_err"],
+         "launches": c11["launches"],
+         **launches21("conv1_1_pairs"),
+         "max_abs_err": c11["max_abs_err"],
          "max_abs_err_fp32": c11["max_abs_err_fp32"], "ms": c11["ms"],
          "plain_ms": c11["plain_ms"], "bound_ms": c11["bound_ms"],
          "bound_by": c11["bound_by"], "library_ms": c11["library_ms"],
@@ -2389,7 +2862,9 @@ def main() -> None:
          "rel_err_vs_fp32": c11["rel_err_vs_fp32"], "build": k8_build},
         {"name": "pool_bwd", "route": "cuda", "source": src + "pool_bwd.cu",
          "replaces": "scripts/experiments/pool_bwd_pallas.py:111",
-         "launches": pool["launches"], "max_abs_err": pool["max_abs_err"],
+         "launches": pool["launches"],
+         **launches21("pool_bwd"),
+         "max_abs_err": pool["max_abs_err"],
          **{k: pool["shapes"][0][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "shape", "dtype")},
@@ -2397,12 +2872,14 @@ def main() -> None:
         {"name": "rowdot", "route": "cuda", "source": src + "rowdot.cu",
          "replaces": "scripts/probe_h2d.py:763",
          "launches": probe["rowdot_pl"]["launches"]["rowdot"],
+         **launches21("rowdot"),
          **{k: rdot[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "shape")}},
         {"name": "pdot (probe 512x512 fp32, K10a)", "route": "cuda",
          "source": src + "pdot.cu", "replaces": "scripts/probe_h2d.py:258",
          "launches": probe["pallas_dot"]["launches"]["pdot"],
+         **launches21("pdot"),
          **rdot["k10a"], "dtype": "float32"},
     ]
     log(f"[times] K1 {k1_ms:.4f} ms (plain {k1_plain_ms:.3f}, bound "

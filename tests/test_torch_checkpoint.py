@@ -17,7 +17,7 @@ from zeroshotsemanticsegmentation_tpu_torch.configs import Config
 from zeroshotsemanticsegmentation_tpu_torch.models import ref_export
 from zeroshotsemanticsegmentation_tpu_torch.models import ref_import
 from zeroshotsemanticsegmentation_tpu_torch.models import vgg_import
-from zeroshotsemanticsegmentation_tpu_torch.models.fcn32s import FCN32s
+from zeroshotsemanticsegmentation_tpu_torch.models import FCN8s, FCN32s
 from zeroshotsemanticsegmentation_tpu_torch.models.jax_weights import (
     state_dict_from_jax_params)
 from zeroshotsemanticsegmentation_tpu_torch.train import (
@@ -342,3 +342,112 @@ def test_resume_from_a_stage2_checkpoint_takes_stage1s_next_step(tmp_path):
                         if not k.startswith("seenmask")}
                        for sd in (end_c, end_a)))
     _assert_nested_equal(end_c["opt_state"], end_a["opt_state"])
+
+
+def _fcn8s(seed=0):
+    return FCN8s(C, channel_scale=SCALE, device="cpu",
+                 generator=torch.Generator().manual_seed(seed))
+
+
+def test_fcn8s_checkpoint_round_trip(tmp_path):
+    """An FCN-8s save: arch "FCN8s", the reference's key names plus the skip
+    heads and no upscore weights; every tensor and Adam's moments read back
+    bit-equal."""
+    model = _fcn8s(2)
+    with torch.no_grad():  # non-zero skip heads
+        for name in ("score_pool3", "score_pool4"):
+            getattr(model, name).weight.normal_()
+    opt = _trained(model)
+    ckpt.save_checkpoint(str(tmp_path), model_state=model.state_dict(),
+                         optim_state=opt.state_dict(), epoch=1,
+                         iteration=7, best_mean_iu=0.5, is_best=True)
+    blob = torch.load(tmp_path / "checkpoint", weights_only=True)
+    assert blob["arch"] == "FCN8s" and blob["upscore_trained"] is False
+    keys = set(blob["model_state_dict"])
+    assert keys == set(model.state_dict())
+    assert {"score_pool3.weight", "score_pool4.bias"} <= keys
+    assert not {"upscore.weight", "seenmask_upscore.weight"} & keys
+    for path in ("checkpoint", "best"):
+        got = ckpt.restore_checkpoint(str(tmp_path / path),
+                                      _fcn8s().state_dict())
+        assert got["arch"] == "FCN8s" and got["skipped_keys"] == []
+        assert (got["epoch"], got["iteration"]) == (1, 7)
+        _assert_sd_equal(got["params"], model.state_dict())
+        fresh = make_fcn_optimizer(_fcn8s(), optim="adam", lr=1e-3)
+        fresh.load_state_dict(got["opt_state"])
+        _assert_nested_equal(fresh.state_dict(), opt.state_dict())
+    assert [len(g["params"]) for g in opt.state_dict()["param_groups"]] \
+        == [18, 18]
+
+
+def test_fcn8s_resume_takes_the_uninterrupted_next_step(tmp_path):
+    _run(tmp_path, "a", _cfg(fcn_epochs=2, arch="fcn8s"))
+    _run(tmp_path, "b", _cfg(fcn_epochs=1, arch="fcn8s"))
+    first = ckpt.restore_checkpoint(str(tmp_path / "b" / "checkpoint"))
+    assert first["arch"] == "FCN8s" and first["opt_state"]["state"]
+    assert first["params"]["score_pool3.weight"].any()  # trained off zero
+    _run(tmp_path, "c", _cfg(fcn_epochs=2, arch="fcn8s"),
+         resume=str(tmp_path / "b" / "checkpoint"))
+    a, c = _rows(tmp_path / "a" / "train_log.csv"), \
+        _rows(tmp_path / "c" / "train_log.csv")
+    assert len(a) == 6 and c == a[3:]
+    end_a = ckpt.restore_checkpoint(str(tmp_path / "a" / "checkpoint"))
+    end_c = ckpt.restore_checkpoint(str(tmp_path / "c" / "checkpoint"))
+    assert (end_c["epoch"], end_c["iteration"]) == (1, 6)
+    _assert_sd_equal(end_c["params"], end_a["params"])
+    _assert_nested_equal(end_c["opt_state"], end_a["opt_state"])
+
+
+def test_jax_import_reads_a_port_fcn8s_checkpoint(tmp_path):
+    """The JAX package reads a port FCN-8s file as a reference file: the
+    modules it shares with FCN-32s equal, the skip heads in `skipped_keys`
+    (the JAX import knows only the reference's modules)."""
+    model = _fcn8s(4)
+    ckpt.save_checkpoint(str(tmp_path), model_state=model.state_dict(),
+                         optim_state={}, epoch=0, iteration=0,
+                         best_mean_iu=0.0, is_best=False)
+    target = {name: {"kernel": np.zeros(v.shape[2:] + v.shape[1::-1],
+                                        np.float32),
+                     "bias": np.zeros(v.shape[0], np.float32)}
+              for name, v in ((k[:-len(".weight")], v) for k, v in
+                              model.state_dict().items()
+                              if k.endswith(".weight"))}
+    got = j_import.load_reference_checkpoint(str(tmp_path / "checkpoint"),
+                                             target)
+    assert got["arch"] == "FCN8s"
+    assert got["skipped_keys"] == ["score_pool3.bias", "score_pool3.weight",
+                                   "score_pool4.bias", "score_pool4.weight"]
+    assert got["upscore_trained"] is False
+    sd = state_dict_from_jax_params(got["params"])
+    for k, v in model.state_dict().items():
+        if k.startswith("score_pool"):
+            assert not sd[k].any(), k  # the JAX side keeps its own
+        else:
+            assert torch.equal(sd[k], v), k
+
+
+def test_reference_fcn32s_file_into_fcn8s(tmp_path, jax_params):
+    """A reference FCN-32s file merged into FCN-8s: the shared modules
+    load, the skip heads keep their zero init, nothing is reported lost; a
+    stage-2-trained seenmask_upscore is refused (JAX
+    ref_import.py:130-152)."""
+    src = state_dict_from_jax_params(jax_params)
+    save = ref_export.save_reference_checkpoint
+    save(str(tmp_path / "ref"), src)
+    target = _fcn8s().state_dict()
+    got = ref_import.load_reference_checkpoint(str(tmp_path / "ref"), target)
+    assert got["skipped_keys"] == [] and got["upscore_trained"] is False
+    model = _fcn8s()
+    model.load_state_dict(got["params"], strict=True)
+    for k, v in model.state_dict().items():
+        if k.startswith("score_pool"):
+            assert not v.any(), k
+        else:
+            assert torch.equal(v, src[k]), k
+    trained = dict(src)
+    trained["seenmask_upscore.weight"] = trained[
+        "seenmask_upscore.weight"] + 0.5
+    save(str(tmp_path / "trained"), trained)
+    with pytest.raises(ValueError, match="stage-2-trained"):
+        ref_import.load_reference_checkpoint(str(tmp_path / "trained"),
+                                             target)

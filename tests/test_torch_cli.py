@@ -76,7 +76,8 @@ def test_cli_refusals(argv, exc):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(arch="fcn8s"), "item 6"), (dict(remat=True), "remat")])
+    (dict(data_parallel=2, batch_size=2, eval_batch_size=2), "item 8"),
+    (dict(remat=True), "remat")])
 def test_run_experiment_refuses_unported_options(tmp_path, kw, match):
     from zeroshotsemanticsegmentation_tpu_torch.configs import get_config
     with pytest.raises(NotImplementedError, match=match):
@@ -107,9 +108,11 @@ def _rows(path):
         return list(csv.reader(f))
 
 
-def test_cli_synthetic_run_writes_what_the_jax_cli_writes(tmp_path):
-    out = cli.main(ARGV + ["--device", "cpu", "-dir", str(tmp_path / "p")])
-    want = jcli.main(ARGV + ["-dir", str(tmp_path / "j")])
+@pytest.mark.parametrize("arch", ["fcn32s", "fcn8s"])
+def test_cli_synthetic_run_writes_what_the_jax_cli_writes(tmp_path, arch):
+    argv = ARGV + ["--arch", arch]
+    out = cli.main(argv + ["--device", "cpu", "-dir", str(tmp_path / "p")])
+    want = jcli.main(argv + ["-dir", str(tmp_path / "j")])
     pdir, jdir = out["log_dir"], want["log_dir"]
     assert osp.basename(pdir)[:-len("TIME_20260102-030405_")] == \
         osp.basename(jdir)[:-len("TIME_20260102-030405_")]
@@ -127,8 +130,11 @@ def test_cli_synthetic_run_writes_what_the_jax_cli_writes(tmp_path):
             open(osp.join(jdir, "config.yaml")) as g:
         assert yaml.safe_load(f) == yaml.safe_load(g)
     assert ckpt.checkpoint_exists(osp.join(pdir, "best"))
-    assert ckpt.restore_checkpoint(osp.join(pdir, "checkpoint"))[
-        "upscore_trained"]
+    saved = ckpt.restore_checkpoint(osp.join(pdir, "checkpoint"))
+    # stage 2 trains FCN-32s's seenmask upscore; FCN-8s has none
+    assert saved["upscore_trained"] is (arch == "fcn32s")
+    assert saved["arch"] == {"fcn32s": "FCN32s", "fcn8s": "FCN8s"}[arch]
+    assert ("score_pool3.weight" in saved["params"]) is (arch == "fcn8s")
     for summary in (out, want):
         assert sorted(summary) == ["best_mean_iu", "log_dir",
                                    "seenmask_best_mean_iu"]

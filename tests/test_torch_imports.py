@@ -64,6 +64,10 @@ def test_import_loads_no_jax():
         "import zeroshotsemanticsegmentation_tpu_torch.train.checkpoint\n"
         "import zeroshotsemanticsegmentation_tpu_torch.train.trainer_seenmask\n"
         "import zeroshotsemanticsegmentation_tpu_torch.cli.train\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.models.fcn8s\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.models.quantized\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.cli.predict\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.cli.export\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'yaml', 'PIL', 'scipy', "
         "'zeroshotsemanticsegmentation_tpu'))\n"

@@ -32,7 +32,7 @@ from zeroshotsemanticsegmentation_tpu_torch.configs.presets import (
 from zeroshotsemanticsegmentation_tpu_torch.data import (
     BatchLoader, PascalContext, PascalVOC, SyntheticDataset,
     load_class_embeddings)
-from zeroshotsemanticsegmentation_tpu_torch.models.fcn32s import FCN32s
+from zeroshotsemanticsegmentation_tpu_torch.models import FCN8s, FCN32s
 from zeroshotsemanticsegmentation_tpu_torch.models.vgg_import import (
     load_vgg16_into_params)
 from zeroshotsemanticsegmentation_tpu_torch.train import (
@@ -71,10 +71,6 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
     """
     dev = resolve_device(device)
     require_one_device(cfg)
-    if cfg.arch != "fcn32s":
-        raise NotImplementedError(
-            f"arch={cfg.arch!r}: FCN-8s is not ported yet (ROADMAP.md queue "
-            "1 item 6)")
     if cfg.remat:
         raise NotImplementedError("remat: rematerialization is not ported")
     if cfg.num_viz > 0 and importlib.util.find_spec("PIL") is None:
@@ -131,7 +127,8 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
         torch.float32
     fb1 = cfg.fused_block1 == "on" or (cfg.fused_block1 == "auto"
                                        and dev.type == "cuda")
-    model = FCN32s(cfg.head_channels, dtype=dtype,
+    model_cls = FCN8s if cfg.arch == "fcn8s" else FCN32s
+    model = model_cls(cfg.head_channels, dtype=dtype,
                    channel_scale=cfg.channel_scale, prune_pad=cfg.prune_pad,
                    fused_block1=fb1,
                    generator=torch.Generator().manual_seed(cfg.seed),
@@ -147,7 +144,7 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
     if load_path:
         ckpt_path = load_path if ckpt.checkpoint_exists(load_path) else \
             osp.join(data_dir, "logs", load_path, "best")
-        checkpoint = ckpt.restore_checkpoint(ckpt_path)
+        checkpoint = ckpt.restore_checkpoint(ckpt_path, model.state_dict())
         model.load_state_dict(_merge_params(model.state_dict(),
                                             checkpoint["params"], logger))
         logger.stdout(
@@ -209,7 +206,7 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
             # to the loaded checkpoint, as the reference's `if not checkpoint`
             best_path = osp.join(log_dir, "best")
             if ckpt.checkpoint_exists(best_path):
-                best = ckpt.restore_checkpoint(best_path)
+                best = ckpt.restore_checkpoint(best_path, model.state_dict())
             elif checkpoint is not None:
                 best = checkpoint
             else:

@@ -72,13 +72,26 @@ CONV_MODULES = (
 )
 
 
-class FCN32s(nn.Module):
-    RAW_HEADS = True  # exposes mode="raw" for the fused serving kernel
+def block_weights(wb, num_blocks: int) -> list:
+    """[[(weight, bias), ...] per block] of the first `num_blocks` VGG
+    blocks, the form `run_pruned_blocks` takes; `wb(name)` gives a conv's
+    (weight, bias)."""
+    return [[wb(name) for name, _ in _VGG_BLOCKS[bi]]
+            for bi in range(num_blocks)]
+
+
+class VGGTrunk(nn.Module):
+    """What FCN-32s and FCN-8s share: the VGG16 convolutions, fc6 / fc7 with
+    their channel dropout, and the `score_fr` / `seenmask_score` heads, with
+    the reference's module names. A subclass adds its upsampling heads, sets
+    `PRUNED_DEPTH` (the deepest support-pruned run it takes) and calls
+    `reset_parameters`."""
+
+    PRUNED_DEPTH = NUM_PRUNED_BLOCKS
 
     def __init__(self, num_classes: int, *, dtype=torch.float32,
                  dropout_rate: float = 0.5, channel_scale: float = 1.0,
                  prune_pad: bool = True, fused_block1: bool = False,
-                 generator: torch.Generator | None = None,
                  device: str | torch.device = "cuda"):
         super().__init__()
         device = resolve_device(device)
@@ -99,29 +112,21 @@ class FCN32s(nn.Module):
         self.score_fr = nn.Conv2d(self.width(4096), num_classes, 1,
                                   device=device)
         self.seenmask_score = nn.Conv2d(self.width(4096), 2, 1, device=device)
-        self.seenmask_upscore = nn.ConvTranspose2d(
-            2, 2, _UPSAMPLE_KERNEL, stride=_UPSAMPLE_STRIDE, bias=False,
-            device=device)
         self.dropout_rate = dropout_rate
-        self.reset_parameters(generator)
 
     def width(self, f: int) -> int:
         return max(8, int(f * self.channel_scale))
 
     @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator | None = None):
+    def _reset_convs(self, generator: torch.Generator | None) -> None:
         """LeCun-normal conv kernels and zero biases (the JAX package's
-        initializers), drawn from `generator`; the seenmask upscore starts
-        at its bilinear init (reference models.py:102-112)."""
+        initializers), drawn from `generator` in `CONV_MODULES` order."""
         for name in CONV_MODULES:
             conv = getattr(self, name)
             fan_in = conv.weight[0].numel()
             w = torch.randn(conv.weight.shape, generator=generator)
             conv.weight.copy_(w / math.sqrt(fan_in))
             conv.bias.zero_()
-        up = bilinear_upsampling_kernel(2, _UPSAMPLE_KERNEL)
-        self.seenmask_upscore.weight.copy_(
-            torch.from_numpy(np.ascontiguousarray(up.transpose(2, 3, 0, 1))))
 
     def _conv(self, name: str, h: torch.Tensor, padding: int = 0):
         conv = getattr(self, name)
@@ -129,26 +134,34 @@ class FCN32s(nn.Module):
                         conv.bias.to(self.dtype), padding=padding)
 
     def _fc(self, name: str, h: torch.Tensor) -> torch.Tensor:
-        """fc6 (7x7) or a 1x1 layer (fc7, score_fr, seenmask_score) through
-        its matmul-gradient op, + bias in the compute dtype."""
+        """fc6 (7x7) or a 1x1 layer (fc7 and the heads) through its
+        matmul-gradient op, + bias in the compute dtype."""
         conv = getattr(self, name)
         op = conv_valid_mmgrad if name == "fc6" else conv1x1_mmwgrad
         return (op(h, conv.weight.to(self.dtype))
                 + conv.bias.to(self.dtype)[:, None, None])
 
-    def _blocks(self, x: torch.Tensor) -> torch.Tensor:
-        """VGG blocks 1-5 on the (B, H, W, 3) image -> NCHW pool5."""
+    def _weight_bias(self, name: str):
+        conv = getattr(self, name)
+        return conv.weight, conv.bias
+
+    def _blocks(self, x: torch.Tensor) -> dict:
+        """VGG blocks 1-5 on the (B, H, W, 3) image -> {block index: NCHW
+        pool output} for every block it materialises: the last block of
+        the support-pruned run (at most `PRUNED_DEPTH` deep) and each block
+        after it."""
         in_h, in_w = x.shape[1], x.shape[2]
+        pools = {}
         start = 0
         h = None
         if self.prune_pad and prunable(in_h, in_w):
-            for nb in range(NUM_PRUNED_BLOCKS, 2, -1):
+            for nb in range(self.PRUNED_DEPTH, 2, -1):
                 if plan_blocks(in_h, in_w, _PAD_CONV1, nb):
-                    kbs = [[(getattr(self, n).weight, getattr(self, n).bias)
-                            for n, _ in _VGG_BLOCKS[bi]] for bi in range(nb)]
-                    h = run_pruned_blocks(kbs, x, _PAD_CONV1, self.dtype,
-                                          self.fused_block1)
+                    h = run_pruned_blocks(
+                        block_weights(self._weight_bias, nb), x,
+                        _PAD_CONV1, self.dtype, self.fused_block1)
                     start = nb
+                    pools[nb - 1] = h
                     break
         if h is None:
             h = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
@@ -158,7 +171,8 @@ class FCN32s(nn.Module):
                 pad = _PAD_CONV1 if (bi == 0 and ci == 0) else 1
                 h = torch.relu(self._conv(name, h, pad))
             h = F.max_pool2d(h, 2, 2, ceil_mode=True)
-        return h
+            pools[bi] = h
+        return pools
 
     def _dropout(self, h: torch.Tensor, train: bool,
                  generator: torch.Generator | None) -> torch.Tensor:
@@ -170,20 +184,50 @@ class FCN32s(nn.Module):
         if rate >= 1.0:
             return torch.zeros_like(h)
         if generator is None:
-            raise ValueError("FCN32s: a training forward with dropout needs "
-                             "an explicit torch.Generator")
+            raise ValueError(f"{type(self).__name__}: a training forward "
+                             "with dropout needs an explicit torch.Generator")
         keep = 1.0 - rate
         mask = torch.rand((h.shape[0], h.shape[1], 1, 1), generator=generator,
                           device=h.device) < keep
         return torch.where(mask, h / keep, torch.zeros_like(h))
 
     def _trunk(self, x: torch.Tensor, train: bool,
-               generator: torch.Generator | None) -> torch.Tensor:
-        """Blocks 1-5, fc6 and fc7 with their dropout -> NCHW fc7 output."""
-        h = self._blocks(x)
-        h = self._dropout(torch.relu(self._fc("fc6", h)), train, generator)
-        return self._dropout(torch.relu(self._fc("fc7", h)), train,
-                             generator)
+               generator: torch.Generator | None, frozen: bool = False):
+        """Blocks 1-5, fc6 and fc7 with their dropout -> (NCHW fc7 output,
+        the pools of `_blocks`); `frozen` runs it without autograd."""
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+            pools = self._blocks(x)
+            h = self._dropout(torch.relu(self._fc("fc6", pools[4])), train,
+                              generator)
+            h = self._dropout(torch.relu(self._fc("fc7", h)), train,
+                              generator)
+        return h, pools
+
+
+class FCN32s(VGGTrunk):
+    RAW_HEADS = True  # exposes mode="raw" for the fused serving kernel
+
+    def __init__(self, num_classes: int, *, dtype=torch.float32,
+                 dropout_rate: float = 0.5, channel_scale: float = 1.0,
+                 prune_pad: bool = True, fused_block1: bool = False,
+                 generator: torch.Generator | None = None,
+                 device: str | torch.device = "cuda"):
+        super().__init__(num_classes, dtype=dtype, dropout_rate=dropout_rate,
+                         channel_scale=channel_scale, prune_pad=prune_pad,
+                         fused_block1=fused_block1, device=device)
+        self.seenmask_upscore = nn.ConvTranspose2d(
+            2, 2, _UPSAMPLE_KERNEL, stride=_UPSAMPLE_STRIDE, bias=False,
+            device=self.fc6.weight.device)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """The convolutions' init from `generator`; the seenmask upscore
+        starts at its bilinear init (reference models.py:102-112)."""
+        self._reset_convs(generator)
+        up = bilinear_upsampling_kernel(2, _UPSAMPLE_KERNEL)
+        self.seenmask_upscore.weight.copy_(
+            torch.from_numpy(np.ascontiguousarray(up.transpose(2, 3, 0, 1))))
 
     def forward(self, x: torch.Tensor, *, mode: str = "both",
                 train: bool = False,
@@ -197,11 +241,7 @@ class FCN32s(nn.Module):
         if mode not in ("fcn", "seenmask", "both", "raw"):
             raise ValueError(f"unexpected forward mode: {mode!r}")
         in_h, in_w = x.shape[1], x.shape[2]
-        if frozen_trunk:
-            with torch.no_grad():
-                h = self._trunk(x, train, generator)
-        else:
-            h = self._trunk(x, train, generator)
+        h, _ = self._trunk(x, train, generator, frozen_trunk)
         # only the heads the mode returns are computed
         f_small = s_small = None
         if mode != "seenmask":

@@ -35,7 +35,10 @@ import torch.nn.functional as F
 
 from zeroshotsemanticsegmentation_tpu_torch.ops import block1_fused
 
+# the preferred depth (through pool4), and FCN-8s's (through pool3, the
+# array its skip head taps)
 NUM_PRUNED_BLOCKS = 4
+NUM_PRUNED_BLOCKS_SKIP = 3
 _FRAME_RIM = 3
 _PROBE_BASE = 16
 _MIN_SIDE = 16
@@ -167,7 +170,8 @@ def _plain_stack(kbs, h: torch.Tensor, pad1: int, dtype) -> torch.Tensor:
 
 
 def run_pruned_blocks(kbs, x: torch.Tensor, pad1: int, dtype,
-                      fused_block1: bool = False) -> torch.Tensor:
+                      fused_block1: bool = False,
+                      conv_relu=None) -> torch.Tensor:
     """Run the first len(kbs) VGG blocks of the pad-100 geometry on the
     receptive-field support only.
 
@@ -175,12 +179,22 @@ def run_pruned_blocks(kbs, x: torch.Tensor, pad1: int, dtype,
     x: (B, H, W, 3) image batch (before the pad).
     fused_block1: run block 1 through `ops.block1_fused.block1_op` (the
       CUDA kernel on the card).
+    conv_relu: optional (a NCHW, weight, bias) -> activations hook that
+      replaces the VALID conv + ReLU of the data path (the int8 forward of
+      `models.quantized`); the frame probe and the ring-constant chain stay
+      in `dtype`, since the zero-input response must be exact. With a hook,
+      block 1 never takes the fused kernel.
     Returns the full virtual pool{len(kbs)} array (B, C, h, w), equal to the
     plain pad-100 path. Callers validate the geometry with `plan_blocks`.
     """
     B, H, W, _ = x.shape
     num_blocks = len(kbs)
     dev = x.device
+    if conv_relu is None:
+        def conv_relu(a, k, b):
+            return _conv_relu(a, k, b, dtype)
+    else:
+        fused_block1 = False  # the hook replaces every data-path conv
 
     probe = _plain_stack(kbs, torch.zeros(
         (1, 3, probe_side(H, num_blocks), probe_side(W, num_blocks)),
@@ -223,7 +237,7 @@ def run_pruned_blocks(kbs, x: torch.Tensor, pad1: int, dtype,
                     and s0 + a.shape[3] + 2 + rim <= vw):
                 raise AssertionError(("ring", bi, ci, s0, rim))
             a = _padc(a, c, 2, 2, 2, 2)
-            a = _conv_relu(a, k, b, dtype)
+            a = conv_relu(a, k, b)
             s0 += (pad1 - 2) if first else -1
             c = torch.relu(_zero_input_response(k, c).to(dtype) + b.to(dtype))
             if not first:
@@ -241,6 +255,9 @@ def run_pruned_blocks(kbs, x: torch.Tensor, pad1: int, dtype,
     if rim > _FRAME_RIM:
         raise AssertionError(("rim", rim))
 
+    # a hook may leave the data path in a narrower dtype than the ring and
+    # frame chain (the int8 forward keeps bf16 activations): the frame
+    # rounds to it
     frame = assemble_frame(probe, vh, vw).to(a.dtype)
     # a fresh tensor, so the slice assignment below never writes into a
     # tensor autograd saved; gradients reach both the frame and `a`

@@ -16,6 +16,14 @@ port computes that upsample as a fixed bilinear function. The import
 therefore checks that ``upscore.weight`` still equals its bilinear init and
 refuses the checkpoint otherwise, as the JAX import does.
 
+FCN-8s (no ``seenmask_upscore``, two skip heads) reads the same files: a
+reference FCN-32s file merged into an FCN8s state dict leaves the skip
+heads as they are and drops a ``seenmask_upscore`` still at its bilinear
+init, which FCN-8s computes as a fixed function; a stage-2-trained one it
+refuses (JAX ref_import.py:130-152). The port's FCN-8s checkpoints carry
+``score_pool3`` / ``score_pool4`` too; merged into a state dict without
+them, they are reported as skipped.
+
 Unlike the JAX import, the optimizer state comes back as it was saved:
 torch's own ``state_dict()``, which the port's torch optimizers load as
 they are (the JAX package cannot convert torch's Adam moments).
@@ -31,15 +39,20 @@ import torch
 
 from zeroshotsemanticsegmentation_tpu_torch.models.fcn32s import (
     CONV_MODULES)
+from zeroshotsemanticsegmentation_tpu_torch.models.fcn8s import SKIP_MODULES
 from zeroshotsemanticsegmentation_tpu_torch.ops.bilinear import (
     bilinear_upsampling_kernel)
 from zeroshotsemanticsegmentation_tpu_torch.serving import (
     upscore_trained_numeric)
 
 _UPSCORE = "upscore.weight"
+_SEEN_UPSCORE = "seenmask_upscore.weight"
+# FCN-8s's skip heads, in the port's FCN-8s checkpoints
+SKIP_KEYS = frozenset(f"{m}.{s}" for m in SKIP_MODULES
+                      for s in ("weight", "bias"))
 KNOWN_KEYS = frozenset(
     [f"{m}.{s}" for m in CONV_MODULES for s in ("weight", "bias")]
-    + [_UPSCORE, "seenmask_upscore.weight"])
+    + [_UPSCORE, _SEEN_UPSCORE]) | SKIP_KEYS
 
 
 def is_reference_checkpoint(path: str) -> bool:
@@ -72,6 +85,11 @@ def szn_params_from_reference_state_dict(
         new = state_dict[key].detach().to("cpu", torch.float32)
         if params is not None:
             if key not in out:
+                if key == _SEEN_UPSCORE:
+                    _check_gate_droppable(new)
+                    continue
+                if key in SKIP_KEYS:  # reported by the caller
+                    continue
                 raise KeyError(f"model params missing {key!r} present in "
                                "the reference checkpoint")
             cur = out[key]
@@ -96,6 +114,19 @@ def szn_params_from_reference_state_dict(
     return out, upscore_trained_numeric(state_dict)
 
 
+def _check_gate_droppable(up: torch.Tensor) -> None:
+    """A `seenmask_upscore` the target architecture lacks (FCN8s: a fixed
+    bilinear seenmask upsample) may be dropped only at its bilinear
+    init."""
+    k = up.numpy()
+    if not np.array_equal(k, _bilinear_iohw(k.shape[0], k.shape[2])):
+        raise ValueError(
+            "reference checkpoint carries a stage-2-trained "
+            "`seenmask_upscore` but the target architecture has no such "
+            "parameter (fixed bilinear upsample) — its gate outputs "
+            "cannot be reproduced; import into FCN32s instead")
+
+
 def load_reference_checkpoint(path: str,
                               params: Mapping[str, torch.Tensor] | None = None
                               ) -> dict:
@@ -114,6 +145,9 @@ def load_reference_checkpoint(path: str,
         state_dict, meta = blob, {}
     merged, numeric = szn_params_from_reference_state_dict(state_dict,
                                                            params)
+    skipped = set(state_dict) - KNOWN_KEYS
+    if params is not None:  # skip heads the target has no place for
+        skipped |= (set(state_dict) & SKIP_KEYS) - set(params)
     return {
         "arch": str(meta.get("arch", "FCN32s")),
         "epoch": int(meta.get("epoch", 0)),
@@ -122,5 +156,5 @@ def load_reference_checkpoint(path: str,
         "params": merged,
         "opt_state": meta.get("optim_state_dict"),
         "upscore_trained": bool(meta.get("upscore_trained", numeric)),
-        "skipped_keys": sorted(set(state_dict) - KNOWN_KEYS),
+        "skipped_keys": sorted(skipped),
     }

@@ -3,8 +3,11 @@
 `make_szn_predictor` returns a function from an image batch to label maps
 through the fastest pipeline: the model's raw (1/32-resolution) heads feed
 the fused projection + upsample + argmax kernel (`ops.szn_fused`), so the
-full-resolution score volumes never reach device memory. It runs under
-`torch.inference_mode()`.
+full-resolution score volumes never reach device memory. An architecture
+without raw heads (FCN-8s, whose fcn head fuses the pool3/pool4 skips at
+several resolutions) takes the unfused route: its full-resolution heads,
+then the NNE of `ops.nne`. `int8=True` swaps the FCN-32s backbone for the
+int8 forward of `models.quantized`. It runs under `torch.inference_mode()`.
 """
 
 from __future__ import annotations
@@ -17,10 +20,13 @@ import torch
 from zeroshotsemanticsegmentation_tpu_torch import resolve_device
 from zeroshotsemanticsegmentation_tpu_torch.data.transforms import (
     prepare_images)
+from zeroshotsemanticsegmentation_tpu_torch.models.quantized import (
+    quantized_raw_forward)
 from zeroshotsemanticsegmentation_tpu_torch.ops.bilinear import (
     bilinear_upsampling_kernel, upscore_conv_transpose_cropped)
 from zeroshotsemanticsegmentation_tpu_torch.ops.metrics import (
     unseen_mask_vector)
+from zeroshotsemanticsegmentation_tpu_torch.ops.nne import infer_labels_szn
 from zeroshotsemanticsegmentation_tpu_torch.ops.szn_fused import (
     infer_labels_szn_fused)
 
@@ -60,16 +66,22 @@ def make_szn_predictor(model: torch.nn.Module,
     detects it from the values. An explicit False that the values
     contradict raises.
 
-    `mesh`, `spatial` and `int8` serving are not ported yet (ROADMAP.md).
+    `int8=True` takes the int8 forward (`models.quantized`: opt-in and
+    approximate; check its label flips against the bf16 route on your data
+    first); FCN32s only. An architecture without raw heads serves through
+    the unfused full-resolution route.
+
+    `mesh` and `spatial` serving are not ported yet (ROADMAP.md).
     """
-    if mesh is not None or spatial or int8:
+    if mesh is not None or spatial:
         raise NotImplementedError(
-            "make_szn_predictor: mesh, spatial and int8 serving are not "
-            "ported yet; see ROADMAP.md queue 1")
-    if not getattr(model, "RAW_HEADS", False):
-        raise NotImplementedError(
-            "make_szn_predictor: only architectures with raw heads (FCN32s) "
-            "are ported yet; see ROADMAP.md queue 1")
+            "make_szn_predictor: mesh and spatial serving are not ported "
+            "yet; see ROADMAP.md queue 1")
+    raw_heads = getattr(model, "RAW_HEADS", False)
+    if int8 and not raw_heads:
+        raise ValueError(
+            "int8 serving implements only the raw-heads (FCN32s) forward "
+            "(models/quantized.py); it is unavailable for this architecture")
     dev = resolve_device(device)
     model = model.to(dev).eval()
     if params is not None:
@@ -87,12 +99,21 @@ def make_szn_predictor(model: torch.nn.Module,
 
     embed = torch.as_tensor(np.asarray(embeddings, np.float32), device=dev)
     unseen_vec = unseen_mask_vector(embed.shape[0], list(unseen_classes))
+    unseen_vec_dev = torch.as_tensor(unseen_vec, device=dev)
     upscore_w = state.get(_UPSCORE_KEY)
 
     @torch.inference_mode()
     def predict(images) -> torch.Tensor:
         images = prepare_images(torch.as_tensor(images, device=dev))
-        f_raw, s_raw = model(images, mode="raw")
+        if not raw_heads:
+            f_full, s_full = model(images, mode="both")
+            return infer_labels_szn(f_full.to(torch.float32),
+                                    s_full.to(torch.float32), embed,
+                                    unseen_vec_dev)
+        if int8:
+            f_raw, s_raw = quantized_raw_forward(state, images)
+        else:
+            f_raw, s_raw = model(images, mode="raw")
         out_hw = (images.shape[1], images.shape[2])
         if not upscore_trained:
             return infer_labels_szn_fused(f_raw, s_raw, embed, unseen_vec,

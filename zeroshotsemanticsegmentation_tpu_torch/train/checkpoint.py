@@ -21,6 +21,11 @@ under a temporary name and renamed, and ``best`` is a hard link to it, so a
 later save (a new file) never changes ``best``. Being single ``torch.save``
 files, these checkpoints are what the JAX package reads as reference
 checkpoints (its ref_import.is_reference_checkpoint).
+
+An FCN-8s run writes the same dict with ``arch: "FCN8s"``: its
+``model_state_dict`` holds the reference's key names plus ``score_pool3.*``
+and ``score_pool4.*``, with no upscore weights (`ref_export.fcn8s_state_dict`),
+and its optimizer state has FCN-8s's parameter groups.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from typing import Mapping
 import torch
 
 from zeroshotsemanticsegmentation_tpu_torch.models.ref_export import (
-    ARCH, reference_state_dict_from_params)
+    ARCH, ARCH_FCN8S, fcn8s_state_dict, reference_state_dict_from_params)
 from zeroshotsemanticsegmentation_tpu_torch.models.ref_import import (
     load_reference_checkpoint)
 
@@ -67,14 +72,17 @@ def save_checkpoint(log_dir: str, *, model_state: Mapping[str, torch.Tensor],
                     best_mean_iu: float, is_best: bool,
                     upscore_trained: bool = False) -> None:
     """Write ``<log_dir>/checkpoint`` and, when `is_best`, link ``best``
-    to it. `model_state` is the port's FCN32s state dict, `optim_state` an
-    optimizer's ``state_dict()``."""
+    to it. `model_state` is the port's FCN32s or FCN8s state dict (told
+    apart by the skip heads), `optim_state` an optimizer's
+    ``state_dict()``."""
+    fcn8s = "score_pool3.weight" in model_state
     blob = {
         "epoch": int(epoch),
         "iteration": int(iteration),
-        "arch": ARCH,
+        "arch": ARCH_FCN8S if fcn8s else ARCH,
         "optim_state_dict": _to_cpu(optim_state),
-        "model_state_dict": reference_state_dict_from_params(model_state),
+        "model_state_dict": (fcn8s_state_dict(model_state) if fcn8s else
+                             reference_state_dict_from_params(model_state)),
         "best_mean_iu": float(best_mean_iu),
         "upscore_trained": bool(upscore_trained),
     }
@@ -87,12 +95,15 @@ def save_checkpoint(log_dir: str, *, model_state: Mapping[str, torch.Tensor],
         _link_copy(path, osp.join(base, "best"))
 
 
-def restore_checkpoint(path: str) -> dict:
+def restore_checkpoint(path: str,
+                       params: Mapping[str, torch.Tensor] | None = None
+                       ) -> dict:
     """'<log_dir>/best' or '<log_dir>/checkpoint' (or a reference file) as
     ``{arch, epoch, iteration, best_mean_iu, params, opt_state,
     upscore_trained, skipped_keys}``, `params` the port's state dict (CPU
-    tensors)."""
-    return load_reference_checkpoint(osp.abspath(path))
+    tensors), merged into the model's state dict `params` when given
+    (`models.ref_import.load_reference_checkpoint`)."""
+    return load_reference_checkpoint(osp.abspath(path), params)
 
 
 def checkpoint_exists(path: str) -> bool:

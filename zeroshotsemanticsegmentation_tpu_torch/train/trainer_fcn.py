@@ -228,7 +228,7 @@ class StepLogBuffer:
 
 
 class FCNTrainer:
-    """Stage 1. `model` (an FCN32s on its device) and `optimizer`
+    """Stage 1. `model` (an FCN32s or FCN8s on its device) and `optimizer`
     (`make_fcn_optimizer`, possibly restored from a checkpoint) are
     trained in place. `upscore_trained` is required: whether stage 2 has
     trained `seenmask_upscore` (a checkpoint's record, False for a fresh
@@ -266,6 +266,15 @@ class FCNTrainer:
         # not read back to find out)
         self.upscore_trained = bool(upscore_trained)
 
+        # the chunked loss and the fused eval read the raw 1/32 heads
+        # (mode="raw"), which an architecture without them (FCN-8s) lacks
+        raw_heads = getattr(model, "RAW_HEADS", False)
+        if cfg.chunked_loss and not raw_heads:
+            raise ValueError(
+                f"chunked_loss needs the raw 1/32 heads, which "
+                f"{type(model).__name__} does not have (its fcn head fuses "
+                "the pool3/pool4 skips); train it without chunked_loss")
+
         self.state = TrainState(model=model, optimizer=optimizer,
                                 step=int(start_iteration))
         kw = dict(loss_name=cfg.fcn_loss, num_classes=n, embeddings=emb,
@@ -274,9 +283,13 @@ class FCNTrainer:
         self._train_step = make_fcn_train_step(
             chunked_loss=cfg.chunked_loss, grad_accum=cfg.grad_accum, **kw)
         # fused eval: the serving labels kernel (K1) inside validation;
-        # "auto" = the model is on the card
+        # "auto" = the model is on the card. Only a model with raw heads
+        # can feed it; any other validates on the unfused route whatever
+        # `fused_eval` says (the JAX trainer picks by backend alone, so its
+        # FCN-8s would fail at mode="raw" on a TPU)
         fe = cfg.fused_eval
-        fused = fe == "on" or (fe == "auto" and self.device.type == "cuda")
+        fused = raw_heads and (
+            fe == "on" or (fe == "auto" and self.device.type == "cuda"))
         self._eval_step = make_fcn_eval_step(
             val_unseen_vec=val_unseen_vec, fused=fused, **kw)
         # the fused SZN kernel upsamples the seenmask gate with the FIXED
