@@ -150,7 +150,20 @@ Phases, each of which passes or ends the script with a non-zero exit:
    (round trip; FCN-8s refused), int8 serving of FCN-32s at B=64 (K1 once,
    K2 never, flips vs bf16 < 0.08); times, peak memory and profile windows
    of FCN-8s serving, its stage-1 step and int8 serving. The kernels line
-   carries each kernel's launches on these paths.
+   carries each kernel's launches on these paths;
+22. multi-device (`phase_mesh`): (a) `make_mesh(1, 1)` on a one-rank NCCL
+   group, three bf16 B=24 stage-1 steps bit-equal to the bare step's
+   (where two bare runs are; cuDNN deterministic), and the step's time on
+   the mesh path beside the bare one's; (b) two ranks sharing the card
+   over gloo: DP=2, TP=2 and the 2x1x1 multislice mesh vs one device
+   (fp32, dropout on: loss, parameters, the first step's gradients,
+   hist), bf16 DP=2 at B=24 (K3-K6 once a rank and step), the dot-free
+   mode on TP=2 (K7 at the TP shard shapes), the fused SZN eval on DP=2
+   and TP=2, serving at B=64 on DP=2 in fp32 and bf16 (K2, K1 once a rank
+   and call), TP=2 serving, the trained gate and FCN-8s's unfused route;
+   (c) the train CLI with `--data_parallel 2` on two ranks, its files,
+   checkpoint and resume. The kernels line carries each kernel's launches
+   on these paths, by rank.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -1624,6 +1637,647 @@ def phase_fcn8s_int8(dev, embed, serve_bf16_ms, ckpt32, tmp, train_batch,
     return out
 
 
+MESH_STEPS = 2          # (b)'s fp32 steps on each two-rank mesh
+MESH_BATCH = 4          # their batch
+MESH_BF16_BATCH = 24    # (b)'s bf16 DP=2 step
+MESH_DOT_FREE_BATCH = 8  # (b)'s bf16 TP=2 dot-free step
+MESH_SERVE_BATCH = 64
+MESH_SMALL_SERVE_BATCH = 16  # TP=2 serving, the trained gate, FCN-8s
+MESH_EVAL_BATCH = 4
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_kit(dev, hw: int, scale: float):
+    """What phase 22's runs share: the 20-dim pascal embeddings (21
+    classes), a seeded batch maker and a model maker from a state dict
+    (`fresh`, built on the meta device, so no init draws are repeated)."""
+    import torch
+    from zeroshotsemanticsegmentation_tpu_torch.data.assets import (
+        load_class_embeddings)
+    from zeroshotsemanticsegmentation_tpu_torch.models.fcn32s import FCN32s
+
+    embed = load_class_embeddings("pascal", 20)
+    k_cls = embed.shape[0]
+
+    def batch(b, seed):
+        r = np.random.RandomState(seed)
+        return {"image": torch.from_numpy(
+                    r.randn(b, hw, hw, 3).astype(np.float32) * 40).to(dev),
+                "label": torch.from_numpy(r.randint(
+                    -1, k_cls, (b, hw, hw)).astype(np.int32)).to(dev),
+                "sizes": torch.full((b, 2), hw, dtype=torch.int32,
+                                    device=dev),
+                "num_real": torch.tensor(b, device=dev)}
+
+    def init_state(seed=0, cls=FCN32s):
+        m = cls(20, channel_scale=scale,
+                generator=torch.Generator().manual_seed(seed), device=dev)
+        return {k: v.detach().clone() for k, v in m.state_dict().items()}
+
+    def fresh(sd, dtype, dropout=0.5, cls=FCN32s):
+        with torch.device("meta"):
+            m = cls(20, dtype=dtype, channel_scale=scale, fused_block1=True,
+                    dropout_rate=dropout, device="meta")
+        m = m.to_empty(device=dev)
+        m.load_state_dict(sd)
+        return m
+
+    return embed, k_cls, batch, init_state, fresh
+
+
+def _train(model, mesh, embed, k_cls, batch, steps, lr=1e-5, seed=100):
+    """`steps` stage-1 steps (cos loss, fused tail, Adam): the auxes, the
+    state, and each step's gradients as the optimizer took them (global;
+    this rank's shards)."""
+    import torch
+    from zeroshotsemanticsegmentation_tpu_torch.train import (
+        TrainState, make_fcn_optimizer, make_fcn_train_step)
+    step = make_fcn_train_step(loss_name="cos", num_classes=k_cls,
+                               embeddings=embed, mesh=mesh)
+    st = TrainState.create(model, make_fcn_optimizer(model, optim="adam",
+                                                     lr=lr))
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    auxes, grads = [], []
+    for _ in range(steps):
+        st, aux = step(st, batch, gen)
+        auxes.append(aux)
+        grads.append({n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None})
+    return auxes, st, grads
+
+
+def _replay_adam(model, grads, lr=1e-5) -> dict:
+    """The parameters after one-device Adam (`make_fcn_optimizer`, as
+    `_train`) takes the given steps' full gradients from `model`'s: what
+    a mesh's optimizer steps on its shards must give."""
+    from zeroshotsemanticsegmentation_tpu_torch.train import (
+        make_fcn_optimizer)
+    opt = make_fcn_optimizer(model, optim="adam", lr=lr)
+    for g in grads:
+        for n, p in model.named_parameters():
+            p.grad = g.get(n)
+        opt.step()
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _hist_held(got, want) -> dict:
+    """Histograms equal, or within the fused tail's near-tie allowance
+    (row sums equal, at most max(16, 0.5%) of the mass moved)."""
+    got, want = got.cpu().long(), want.cpu().long()
+    moved = int((got - want).abs().sum())
+    rows = bool((got.sum(1) == want.sum(1)).all())
+    return {"equal": bool((got == want).all()), "moved": moved,
+            "rows_equal": rows,
+            "ok": rows and moved <= max(16, 0.005 * int(want.sum()))}
+
+
+def _mesh_rank(rank: int, world: int, init_method: str, hw: int,
+               scale: float, sizes: dict) -> dict:
+    """Phase 22 (b)'s rank function: two ranks sharing the card over gloo
+    (the run's device is `cuda:0` for both, or the CPU for a small check
+    of this code). Rank 0 runs the one-device references too and holds
+    the mesh runs against them; every rank reports its launch counts."""
+    import torch
+    import torch.distributed as dist
+    from zeroshotsemanticsegmentation_tpu_torch.models.fcn8s import FCN8s
+    from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
+    from zeroshotsemanticsegmentation_tpu_torch.ops import dotpolicy
+    from zeroshotsemanticsegmentation_tpu_torch.ops import pdot as pd
+    from zeroshotsemanticsegmentation_tpu_torch.ops.metrics import (
+        unseen_mask_vector)
+    from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
+        gather_params, gather_rows, init_distributed, make_mesh,
+        make_multislice_mesh, shard_model)
+    from zeroshotsemanticsegmentation_tpu_torch.serving import (
+        make_szn_predictor)
+    from zeroshotsemanticsegmentation_tpu_torch.train import (
+        make_szn_eval_step)
+
+    cuda = torch.cuda.is_available() and sizes.get("device") != "cpu"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed("gloo", init_method, rank, world, timeout=300)
+    devices = [dev] * world
+    embed, k_cls, batch, init_state, fresh = _mesh_kit(dev, hw, scale)
+    f32, bf16 = torch.float32, torch.bfloat16
+    main = rank == 0
+    out = {"rank": rank, "launches": {}, "checks": {}, "seconds": {}}
+
+    def counted(name, fn):
+        """fn() with this rank's launch counts from 0, recorded; the time
+        it took on this rank."""
+        if cuda:
+            torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["launches"][name] = {k: v for k, v in
+                                 _kernels.launch_counts.items() if v}
+        return r
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    sd = init_state(0)
+    meshes = {"dp2": lambda: make_mesh(2, 1, devices=devices),
+              "tp2": lambda: make_mesh(1, 2, devices=devices),
+              "slice2": lambda: make_multislice_mesh(2, 1, 1,
+                                                     devices=devices)}
+    b_fp32 = batch(sizes["mesh_batch"], 1)
+
+    # fp32 steps with dropout: every mesh vs the one-device run
+    ref = None
+    if main:
+        m = fresh(sd, f32)
+        auxes, st, grads = _train(m, None, embed, k_cls, b_fp32,
+                                  sizes["mesh_steps"])
+        ref = {"loss": auxes[-1]["loss"].item(),
+               "hist": auxes[-1]["hist"].clone(), "grads": grads[0],
+               "params": {k: v.detach().clone()
+                          for k, v in m.state_dict().items()}}
+        del m, st
+        free()
+    dist.barrier()
+    for name, make in meshes.items():
+        mesh = make()
+        m = shard_model(fresh(sd, f32), mesh)
+        auxes, st, grads = counted(name, lambda: _train(
+            m, mesh, embed, k_cls, b_fp32, sizes["mesh_steps"]))
+        params = gather_params(m.state_dict(), mesh)
+        grads = [gather_params(g, mesh) for g in grads]
+        del m, st
+        free()
+        if main:
+            loss = auxes[-1]["loss"].item()
+            prel = max((params[k] - ref["params"][k]).abs().sub(
+                2e-3 * ref["params"][k].abs()).max().item()
+                for k in params)
+            grel = {k: rel(grads[0][k], g) for k, g in ref["grads"].items()}
+            # the mesh's optimizer steps vs one-device Adam on the mesh's
+            # own gradients: each parameter's change at relative norm
+            replay = _replay_adam(fresh(sd, f32), grads)
+            urel = {k: rel(params[k] - sd[k], replay[k] - sd[k])
+                    for k in replay}
+            out["checks"][name] = {
+                "loss": loss, "loss_ref": ref["loss"],
+                "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]),
+                "params_excess_over_rtol": prel,
+                "params_ok": prel <= 1e-4,
+                "replay_rel_max": max(urel.values()),
+                "replay_keys_equal": set(params) == set(replay),
+                "grad_rel_max": max(grel.values()),
+                "grad_keys_equal": set(grads[0]) == set(ref["grads"]),
+                "hist": _hist_held(auxes[-1]["hist"], ref["hist"])}
+            del replay
+        del params, grads
+        free()
+    del ref
+    free()
+
+    # bf16 DP=2 steps at B=24, then the dot-free mode on TP=2: K7's shapes
+    mesh = meshes["dp2"]()
+    m = shard_model(fresh(sd, bf16), mesh)
+    b24 = batch(sizes["bf16_batch"], 2)
+    auxes, st, _ = counted("bf16_dp2", lambda: _train(
+        m, mesh, embed, k_cls, b24, 2))
+    out["checks"]["bf16_dp2"] = {"losses": [a["loss"].item()
+                                            for a in auxes]}
+    del m, st, b24, auxes
+    free()
+    mesh = meshes["tp2"]()
+    m = shard_model(fresh(sd, bf16), mesh)
+    b8 = batch(sizes["dot_free_batch"], 3)
+    shapes = []
+    real_plan = pd.pdot_plan
+
+    def recording_plan(mm, k, n, **kw):
+        shapes.append((mm, k, n, kw["trans_a"]))
+        return real_plan(mm, k, n, **kw)
+
+    pd.pdot_plan = recording_plan
+    dotpolicy.set_dot_free(True)
+    try:
+        auxes, st, _ = counted("bf16_tp2_dot_free", lambda: _train(
+            m, mesh, embed, k_cls, b8, 1))
+    finally:
+        dotpolicy.set_dot_free(None)
+        pd.pdot_plan = real_plan
+    out["checks"]["bf16_tp2_dot_free"] = {
+        "losses": [a["loss"].item() for a in auxes], "pdot_shapes": shapes}
+    del m, st, b8, auxes
+    free()
+
+    # one sharded SZN eval (fused, K1) on DP=2 and on TP=2 vs one device
+    uv = unseen_mask_vector(k_cls, UNSEEN)
+    beval = batch(sizes["eval_batch"], 4)
+
+    def szn_eval(mesh):
+        m = fresh(sd, f32, dropout=0.0)
+        if mesh is not None:
+            shard_model(m, mesh)
+        step = make_szn_eval_step(loss_name="cos", num_classes=k_cls,
+                                  embeddings=embed, all_unseen_vec=uv,
+                                  val_unseen_vec=uv, fused=True, mesh=mesh)
+        r = step(m, beval)
+        if mesh is not None:
+            r["pred"] = gather_rows(r["pred"], mesh)
+        return r
+
+    want = szn_eval(None) if main else None
+    for name in ("dp2", "tp2"):
+        got = counted("eval_" + name, lambda: szn_eval(meshes[name]()))
+        if main:
+            out["checks"]["eval_" + name] = {
+                "hists": _hist_held(got["hists"].reshape(-1, k_cls),
+                                    want["hists"].reshape(-1, k_cls)),
+                "loss_rel": abs(got["loss_sum"].item()
+                                - want["loss_sum"].item())
+                / abs(want["loss_sum"].item()),
+                "pred_flips": (got["pred"] != want["pred"]).float().mean()
+                .item()}
+    del want
+    free()
+
+    # serving: DP=2 in fp32 and bf16 at B=64 (the pristine gate), TP=2 in
+    # fp32, the trained gate, FCN-8s's unfused route
+    images = batch(sizes["serve_batch"], 5)["image"]
+
+    def serve(mesh, dtype, n, state=sd, cls=None):
+        kw = {} if cls is None else {"cls": cls}
+        m = fresh(state, dtype, dropout=0.0, **kw)
+        pred = make_szn_predictor(m, None, embed, UNSEEN, device=dev,
+                                  mesh=mesh)
+        return pred(images[:n])
+
+    n_all, n_small = sizes["serve_batch"], sizes["small_serve_batch"]
+    ref32 = serve(None, f32, n_all) if main else None
+    ref16 = serve(None, bf16, n_all) if main else None
+    runs = {"serve_dp2_fp32": ("dp2", f32, n_all),
+            "serve_dp2_bf16": ("dp2", bf16, n_all),
+            "serve_tp2_fp32": ("tp2", f32, n_small)}
+    for name, (mname, dtype, n) in runs.items():
+        got = counted(name, lambda: serve(meshes[mname](), dtype, n))
+        if main:
+            flips32 = (got != ref32[:n]).float().mean().item()
+            chk = {"shape": list(got.shape), "flips_vs_fp32": flips32}
+            if dtype == bf16:
+                base = (ref16 != ref32).float().mean().item()
+                chk.update(flips_vs_bf16=(got != ref16).float().mean()
+                           .item(), flips_one_device_bf16=base,
+                           bar_ok=flips32 <= 2 * base + 1e-6)
+            out["checks"][name] = chk
+    # the trained gate: a perturbed seenmask upscore (K1 twice)
+    trained = dict(sd)
+    g = torch.Generator().manual_seed(7)
+    trained["seenmask_upscore.weight"] = sd["seenmask_upscore.weight"] + (
+        0.05 * torch.randn(sd["seenmask_upscore.weight"].shape,
+                           generator=g)).to(dev)
+    want = serve(None, f32, n_small, trained) if main else None
+    got = counted("serve_dp2_trained_gate",
+                  lambda: serve(meshes["dp2"](), f32, n_small, trained))
+    if main:
+        out["checks"]["serve_dp2_trained_gate"] = {
+            "flips": (got != want).float().mean().item()}
+    # FCN-8s: the unfused full-resolution route on TP=2
+    sd8 = init_state(0, FCN8s)
+    want = serve(None, f32, n_small, sd8, FCN8s) if main else None
+    got = counted("serve_tp2_fcn8s",
+                  lambda: serve(meshes["tp2"](), f32, n_small, sd8, FCN8s))
+    if main:
+        out["checks"]["serve_tp2_fcn8s"] = {
+            "flips": (got != want).float().mean().item()}
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _cli_rank(rank: int, world: int, init_method: str, tmp: str,
+              ports: list, device: str, extra=()) -> dict:
+    """Phase 22 (c)'s rank function: `cli.train.main` as torchrun would
+    start it on two ranks sharing `device` over gloo (num_viz 0: the
+    card's machine has no Pillow), then a one-epoch resume from its
+    checkpoint on the same mesh."""
+    from zeroshotsemanticsegmentation_tpu_torch.cli import train as cli
+    from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
+
+    real_run = cli.run_experiment
+
+    def run_no_viz(cfg, **kw):
+        return real_run(cfg.replace(num_viz=0), **kw)
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost")
+    common = ["-c", "14", "--synthetic", "--data_parallel", "2",
+              "--batch_size", "2", "--eval_batch_size", "2", "-dir", tmp,
+              "--device", device, *extra]
+    out = {}
+    with mock.patch.object(cli, "run_experiment", run_no_viz):
+        os.environ["MASTER_PORT"] = str(ports[0])
+        _kernels.reset_launch_counts()
+        out["first"] = cli.main(common + ["-ve", "1", "-se", "1", "-n",
+                                          "mesh"])
+        out["launches_first"] = dict(_kernels.launch_counts)
+        os.environ["MASTER_PORT"] = str(ports[1])
+        resume = osp.join(out["first"]["log_dir"], "checkpoint")
+        out["second"] = cli.main(common + ["-r", resume, "-ve", "2", "-se",
+                                           "0", "-n", "mesh_resume"])
+    return out
+
+
+def phase_mesh(dev, ckpt32, tmp, card, log, require) -> dict:
+    """Phase 22: the mesh layer (`parallel.mesh`) on the card.
+
+    (a) world 1 over NCCL: `make_mesh(1, 1)` through the mesh code path
+        (every collective called on a one-rank NCCL group); three bf16
+        stage-1 steps at B=24 (dropout 0.5) from the same weights, batch
+        and generator as two bare runs, with cuDNN deterministic: the
+        parameters bit-equal to the bare run's where two bare runs are
+        bit-equal; K3-K6 once a step; the last mesh step with host syncs as
+        errors (a sync fails the phase); then the step's time on the mesh path beside the
+        bare step's (CUDA events, alternating): the mesh path's cost.
+    (b) two ranks sharing the card over gloo (`_mesh_rank`): DP=2, TP=2
+        and the 2x1x1 multislice mesh, each two fp32 steps at B=4 with
+        dropout on vs the one-device run (loss rtol 1e-5; parameters at
+        tests/test_parallel.py's bar; the first step's gradients at
+        relative norm < 1e-4 each, which an average instead of a sum
+        fails; each parameter's change against one-device Adam replayed
+        on the mesh's own gradients at relative norm < 1e-6, which a
+        skipped or mis-sharded optimizer step fails; hist exact or the
+        near-tie allowance); bf16 DP=2 at B=24
+        (finite, K3-K6 once a rank and step); the dot-free mode on TP=2
+        bf16 at B=8 (K7 at the TP shard shapes, three launches a rank);
+        the fused SZN eval on DP=2 and TP=2 (hists held like the step's);
+        serving on DP=2 at B=64 in fp32 (flips < 1e-4) and bf16 (the
+        serving bar vs the one-device fp32 labels: at most 2x the
+        one-device bf16 run's flips), K2 and K1 once a rank and call; TP=2
+        serving, the trained gate (K1 twice) and FCN-8s's unfused route,
+        each vs one device (flips < 1e-4).
+    (c) the train CLI on two ranks (`_cli_rank`): one set of files from
+        rank 0, the checkpoint's keys and shapes those of phase 20's
+        one-device file, a resume that continues the counters.
+    """
+    import torch
+    import torch.distributed as dist
+    from zeroshotsemanticsegmentation_tpu_torch.data import BatchLoader
+    from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
+    from zeroshotsemanticsegmentation_tpu_torch.parallel import dryrun
+    from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
+        init_distributed, make_mesh, shard_model)
+    from zeroshotsemanticsegmentation_tpu_torch.train import (
+        TrainState, make_fcn_optimizer, make_fcn_train_step)
+
+    out = {}
+    t_phase = time.perf_counter()
+    log(f"[mesh] {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        "by this process before phase 22")
+    embed, k_cls, batch, init_state, fresh = _mesh_kit(dev, H, 1.0)
+
+    # ---- (a) world 1 over NCCL -------------------------------------------
+    init_distributed("nccl", f"tcp://localhost:{free_port()}", 0, 1,
+                     timeout=120)
+    mesh = make_mesh(1, 1)
+    sd = init_state(0)
+    tb = batch(TRAIN_BATCH, 0)
+    bf = torch.bfloat16
+
+    def run(with_mesh, steps=TRAIN_STEPS, sync_check=False):
+        """(model, state, step, generator) of `steps` bf16 steps, on the
+        world-1 mesh or bare; with `sync_check` a host sync in the last
+        step raises and fails the phase."""
+        m = fresh(sd, bf)
+        if with_mesh:
+            shard_model(m, mesh)
+        step = make_fcn_train_step(loss_name="cos", num_classes=k_cls,
+                                   embeddings=embed,
+                                   mesh=mesh if with_mesh else None)
+        st = TrainState.create(m, make_fcn_optimizer(m, optim="adam",
+                                                     lr=1e-5))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for i in range(steps):
+            if sync_check and i == steps - 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                st, _ = step(st, tb, gen)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return m, st, step, gen
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        a1 = run(False)[0].state_dict()
+        a1 = {k: v.clone() for k, v in a1.items()}
+        a2 = {k: v.clone() for k, v in run(False)[0].state_dict().items()}
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        mm = run(True, sync_check=True)[0]
+        torch.cuda.synchronize()
+        la = dict(_kernels.launch_counts)
+        am = {k: v.clone() for k, v in mm.state_dict().items()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del mm
+    bare_equal = all(torch.equal(a1[k], a2[k]) for k in a1)
+    mesh_equal = all(torch.equal(a1[k], am[k]) for k in a1)
+    bare_rel = max(rel(a2[k], a1[k]) for k in a1)
+    mesh_rel = max(rel(am[k], a1[k]) for k in a1)
+    del a1, a2, am
+    torch.cuda.empty_cache()
+    log(f"[mesh a] world 1 nccl: bare runs bit-equal {bare_equal} (max rel "
+        f"{bare_rel:.3g}), mesh vs bare bit-equal {mesh_equal} (max rel "
+        f"{mesh_rel:.3g}); launches in {TRAIN_STEPS} mesh steps {la}; "
+        "no host sync in the last mesh step")
+    require(mesh_equal if bare_equal else mesh_rel <= 2 * bare_rel + 1e-7,
+            f"world-1 mesh step differs from the bare step: bit-equal "
+            f"{mesh_equal}, rel {mesh_rel} (bare vs bare {bare_rel})")
+    for key in ("block1_train_fwd", "block1_train_bwd", "costail_fwd",
+                "costail_bwd"):
+        require(la[key] == TRAIN_STEPS,
+                f"world-1 mesh: {key} launched {la[key]} times in "
+                f"{TRAIN_STEPS} steps")
+    # the mesh path's cost on one card: the same trainer's step with and
+    # without it, alternating
+    mb = run(False, steps=1)
+    mmsh = run(True, steps=1)
+    times = {"bare": [], "mesh": []}
+    for _ in range(2):
+        for name, (m_, st_, step_, gen_) in (("bare", mb), ("mesh", mmsh)):
+            st_box = [st_]
+
+            def one(step_=step_, gen_=gen_, st_box=st_box):
+                st_box[0], _ = step_(st_box[0], tb, gen_)
+            times[name].append(time_ms(one, iters=TIMED_STEPS, warmup=1))
+    bare_ms = float(np.mean(times["bare"]))
+    mesh_ms = float(np.mean(times["mesh"]))
+    del mb, mmsh, tb
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    log(f"[mesh a] {card}: B={TRAIN_BATCH} bf16 step {bare_ms:.2f} ms bare, "
+        f"{mesh_ms:.2f} ms on the world-1 NCCL mesh (runs {times}); cost "
+        f"{mesh_ms - bare_ms:+.2f} ms a step")
+    out["a"] = {"bare_bit_equal": bare_equal, "mesh_bit_equal": mesh_equal,
+                "bare_rel": bare_rel, "mesh_rel": mesh_rel,
+                "launches": la, "sync_check": "no sync",
+                "bare_ms": bare_ms, "mesh_ms": mesh_ms, "runs_ms": times,
+                "card": card}
+    out["seconds_a"] = time.perf_counter() - t_phase
+
+    # ---- (b) two ranks sharing the card over gloo ---------------------------
+    t0 = time.perf_counter()
+    sizes = {"mesh_steps": MESH_STEPS, "mesh_batch": MESH_BATCH,
+             "bf16_batch": MESH_BF16_BATCH,
+             "dot_free_batch": MESH_DOT_FREE_BATCH,
+             "serve_batch": MESH_SERVE_BATCH,
+             "small_serve_batch": MESH_SMALL_SERVE_BATCH,
+             "eval_batch": MESH_EVAL_BATCH}
+    ranks = dryrun.spawn(_mesh_rank, 2, (H, 1.0, sizes), timeout_s=600)
+    out["seconds_b"] = time.perf_counter() - t0
+    checks = ranks[0]["checks"]
+    for r in ranks:
+        log(f"[mesh b] rank {r['rank']} launches {r['launches']}")
+        log(f"[mesh b] rank {r['rank']} seconds "
+            + json.dumps({k: round(v, 3) for k, v in r["seconds"].items()}))
+    for name, c in checks.items():
+        log(f"[mesh b] {name}: {json.dumps(c, default=str)}")
+    for name in ("dp2", "tp2", "slice2"):
+        c = checks[name]
+        require(c["loss_rel"] <= 1e-5 and c["params_ok"]
+                and c["grad_keys_equal"] and c["grad_rel_max"] < 1e-4
+                and c["replay_keys_equal"] and c["replay_rel_max"] < 1e-6
+                and c["hist"]["ok"],
+                f"two-rank {name} step vs one device: {c}")
+    px = MESH_DOT_FREE_BATCH * 17 * 17
+    want_shapes = {(px, 2048, 25088, False), (2048, px, 4096, True),
+                   (4096, px, 20, True)}
+    for r in ranks:
+        lr_ = r["launches"]
+        for key in ("block1_train_fwd", "block1_train_bwd", "costail_fwd",
+                    "costail_bwd"):
+            require(lr_["bf16_dp2"].get(key) == 2,
+                    f"rank {r['rank']} bf16 DP=2: {key} "
+                    f"{lr_['bf16_dp2'].get(key)} launches in 2 steps")
+        require(lr_["bf16_tp2_dot_free"].get("pdot") == 3,
+                f"rank {r['rank']} dot-free TP=2: "
+                f"{lr_['bf16_tp2_dot_free']}")
+        for name in ("serve_dp2_fp32", "serve_dp2_bf16", "serve_tp2_fp32"):
+            require(lr_[name].get("block1_fused") == 1
+                    and lr_[name].get("szn_fused") == 1,
+                    f"rank {r['rank']} {name}: {lr_[name]}")
+        require(lr_["serve_dp2_trained_gate"].get("szn_fused") == 2,
+                f"rank {r['rank']} trained gate: "
+                f"{lr_['serve_dp2_trained_gate']}")
+        require(lr_["serve_tp2_fcn8s"].get("block1_fused") == 1
+                and not lr_["serve_tp2_fcn8s"].get("szn_fused"),
+                f"rank {r['rank']} FCN-8s: {lr_['serve_tp2_fcn8s']}")
+        for name in ("eval_dp2", "eval_tp2"):
+            require(lr_[name].get("szn_fused") == 1,
+                    f"rank {r['rank']} {name}: {lr_[name]}")
+    got_shapes = set(map(tuple, checks["bf16_tp2_dot_free"]["pdot_shapes"]))
+    require(got_shapes == want_shapes,
+            f"dot-free TP=2 products {got_shapes}, want {want_shapes}")
+    require(all(np.isfinite(x) for x in checks["bf16_dp2"]["losses"]
+                + checks["bf16_tp2_dot_free"]["losses"]),
+            f"bf16 mesh losses {checks['bf16_dp2']}")
+    for name in ("eval_dp2", "eval_tp2"):
+        c = checks[name]
+        require(c["hists"]["ok"] and c["loss_rel"] < 1e-4
+                and c["pred_flips"] < 1e-4, f"{name}: {c}")
+    for name in ("serve_dp2_fp32", "serve_tp2_fp32"):
+        require(checks[name]["flips_vs_fp32"] < 1e-4, f"{name}: "
+                f"{checks[name]}")
+    require(checks["serve_dp2_bf16"]["bar_ok"],
+            f"bf16 mesh serving misses the bar: {checks['serve_dp2_bf16']}")
+    for name in ("serve_dp2_trained_gate", "serve_tp2_fcn8s"):
+        require(checks[name]["flips"] < 1e-4, f"{name}: {checks[name]}")
+    out["b"] = {"launches": {r["rank"]: r["launches"] for r in ranks},
+                "seconds": {r["rank"]: r["seconds"] for r in ranks},
+                "checks": checks}
+
+    # ---- (c) the train CLI on two ranks -------------------------------------
+    t0 = time.perf_counter()
+    ctmp = osp.join(tmp, "mesh_cli")
+    res = dryrun.spawn(_cli_rank, 2, (ctmp, [free_port(), free_port()],
+                                      "cuda:0"), timeout_s=600)
+    out["seconds_c"] = time.perf_counter() - t0
+    first, second = res[0]["first"], res[0]["second"]
+    require(all(r["first"]["log_dir"] == first["log_dir"] for r in res),
+            "the ranks named different log directories")
+    runs = sorted(os.listdir(osp.join(ctmp, "logs")))
+    log(f"[mesh c] log dirs {runs}; summary {first}; resume {second}")
+    require(len(runs) == 2 and runs[0].startswith("mesh_CFG")
+            and runs[1].startswith("mesh_resume_CFG"),
+            f"two-rank CLI wrote {runs}")
+    log_dir = first["log_dir"]
+    names = sorted(os.listdir(log_dir))
+    for name in ("config.yaml", "counts.csv", "train_log.csv",
+                 "val_log.csv", "seenmask_train_log.csv",
+                 "seenmask_val_log.csv", "checkpoint", "best"):
+        require(name in names, f"two-rank CLI did not write {name}: {names}")
+    require(not [n for n in names if n.endswith(".tmp")],
+            f"leftover temporary files: {names}")
+    from zeroshotsemanticsegmentation_tpu_torch.cli import train as cli
+    from zeroshotsemanticsegmentation_tpu_torch.configs import get_config
+    cfg = get_config(14, fcn_epochs=1, seenmask_epochs=1, batch_size=2,
+                     eval_batch_size=2, data_parallel=2)
+    train_ds, seen_ds, _ = cli._build_datasets(cfg, data_dir=ctmp,
+                                               synthetic=True)
+    n_s1 = len(BatchLoader(seen_ds, 2))
+    n_s2 = len(BatchLoader(train_ds, 2))
+    s1 = csv_rows(osp.join(log_dir, "train_log.csv"))
+    s2 = csv_rows(osp.join(log_dir, "seenmask_train_log.csv"))
+    require(len(s1) == n_s1 and len(s2) == n_s2,
+            f"two-rank CLI logged {len(s1)} + {len(s2)} steps, want "
+            f"{n_s1} + {n_s2}")
+    require(all(np.isfinite(float(r[2])) for r in s1 + s2),
+            f"two-rank CLI losses {s1 + s2}")
+    for r in res:
+        lf = r["launches_first"]
+        require(lf["costail_fwd"] == n_s1 and lf["block1_train_bwd"] == n_s1,
+                f"rank CLI launches {lf}, {n_s1} stage-1 steps")
+    mine = torch.load(osp.join(log_dir, "checkpoint"), map_location="cpu",
+                      weights_only=True, mmap=True)
+    theirs = torch.load(ckpt32, map_location="cpu", weights_only=True,
+                        mmap=True)
+
+    def shapes(blob):
+        return ({k: tuple(v.shape)
+                 for k, v in blob["model_state_dict"].items()},
+                {i: {k: tuple(v.shape) for k, v in s.items()}
+                 for i, s in blob["optim_state_dict"]["state"].items()},
+                blob["optim_state_dict"]["param_groups"])
+
+    require(shapes(mine) == shapes(theirs),
+            "the two-rank checkpoint's keys or shapes differ from the "
+            "one-device run's")
+    del mine, theirs
+    r2 = csv_rows(osp.join(second["log_dir"], "train_log.csv"))
+    require(len(r2) == n_s1 and {r[0] for r in r2} == {"1"}
+            and int(r2[0][1]) == n_s1,
+            f"the two-rank resume trained {r2}")
+    out["c"] = {"runs": runs, "steps": [n_s1, n_s2], "resume_rows": len(r2),
+                "launches_first": [r["launches_first"] for r in res]}
+    for d in runs:
+        shutil.rmtree(osp.join(ctmp, "logs", d))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[mesh] {card}: phase 22 {out['seconds']:.1f} s (a "
+        f"{out['seconds_a']:.1f}, b {out['seconds_b']:.1f}, c "
+        f"{out['seconds_c']:.1f})")
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -2707,7 +3361,23 @@ def main() -> None:
         p21 = phase_fcn8s_int8(dev, embed, ms, tcli["checkpoint"], tmp,
                                train_batch, plain_training, flip_rate, log,
                                require)
+
+        # ---- 22. multi-device -----------------------------------------------
+        torch.cuda.empty_cache()
+        p22 = phase_mesh(dev, tcli["checkpoint"], tmp, card, log, require)
     l21 = p21["launches"]
+
+    def launches22(key: str) -> dict:
+        """One kernel's launches on phase 22's paths: (a) the world-1 NCCL
+        mesh's three steps, (b) each two-rank path by rank, (c) each rank's
+        two-rank CLI run."""
+        return {"launches_mesh": {
+            "world1_nccl": p22["a"]["launches"].get(key, 0),
+            "two_ranks_gloo": {str(r): {path: c.get(key, 0)
+                                        for path, c in paths.items()}
+                               for r, paths in p22["b"]["launches"].items()},
+            "two_rank_cli": [c.get(key, 0)
+                             for c in p22["c"]["launches_first"]]}}
 
     def launches21(key: str) -> dict:
         """One kernel's launches on phase 21's paths."""
@@ -2722,7 +3392,7 @@ def main() -> None:
          "replaces": ref + "szn_fused.py:44",
          "launches": launches["szn_fused"],
          "launches_train_cli": cli_launches["szn_fused"],
-         **launches21("szn_fused"),
+         **launches21("szn_fused"), **launches22("szn_fused"),
          "launches_eval": evals["k1_launches"], "max_abs_err": k1_maxerr,
          "flip_rate": k1_flips, "flip_rate_k33": k33_flips,
          "flip_rate_ties": tie_flips, "ms": k1_ms,
@@ -2735,7 +3405,7 @@ def main() -> None:
          "replaces": ref + "block1_fused.py:485",
          "launches": launches["block1_fused"],
          "launches_train_cli": cli_launches["block1_fused"],
-         **launches21("block1_fused"),
+         **launches21("block1_fused"), **launches22("block1_fused"),
          "max_abs_err": k2_bf16_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms,
@@ -2751,7 +3421,7 @@ def main() -> None:
          "replaces": ref + "block1_fused.py:288",
          "launches": tlaunches["block1_train_fwd"],
          "launches_train_cli": cli_launches["block1_train_fwd"],
-         **launches21("block1_train_fwd"),
+         **launches21("block1_train_fwd"), **launches22("block1_train_fwd"),
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": k3_lib_ms,
@@ -2766,7 +3436,7 @@ def main() -> None:
          "replaces": ref + "block1_fused.py:676",
          "launches": tlaunches["block1_train_bwd"],
          "launches_train_cli": cli_launches["block1_train_bwd"],
-         **launches21("block1_train_bwd"),
+         **launches21("block1_train_bwd"), **launches22("block1_train_bwd"),
          "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": k4_lib_ms,
@@ -2784,7 +3454,7 @@ def main() -> None:
          "replaces": ref + "costail_fused.py:108",
          "launches": tlaunches["costail_fwd"],
          "launches_train_cli": cli_launches["costail_fwd"],
-         **launches21("costail_fwd"),
+         **launches21("costail_fwd"), **launches22("costail_fwd"),
          "max_abs_err": tail_errs[20][0], "ms": tail20["k5_ms"],
          "device_ms": tail20["k5_device_ms"],
          "bound_share": tail20["k5_share"],
@@ -2812,7 +3482,7 @@ def main() -> None:
          "replaces": ref + "costail_fused.py:145",
          "launches": tlaunches["costail_bwd"],
          "launches_train_cli": cli_launches["costail_bwd"],
-         **launches21("costail_bwd"),
+         **launches21("costail_bwd"), **launches22("costail_bwd"),
          "max_abs_err": tail_errs[20][1], "ms": tail20["k6_ms"],
          "device_ms": tail20["k6_device_ms"],
          "bound_share": tail20["k6_share"],
@@ -2833,7 +3503,7 @@ def main() -> None:
          "replaces": ref + "pdot.py:47",
          "launches": dlaunches["pdot"],
          "launches_train_cli": cli_launches["pdot"],
-         **launches21("pdot"),
+         **launches21("pdot"), **launches22("pdot"),
          "launches_stage2_dot_free": STAGE2_STEPS,
          "max_abs_err": fc6_row["max_abs_err"], "ms": fc6_row["ms"],
          "plain_ms": fc6_row["plain_ms"], "bound_ms": fc6_row["bound_ms"],
@@ -2885,6 +3555,9 @@ def main() -> None:
     log(f"[times] K1 {k1_ms:.4f} ms (plain {k1_plain_ms:.3f}, bound "
         f"{k1_bound:.4f}); K2 {k2_ms:.3f} ms (plain {k2_plain_ms:.3f}, "
         f"cuDNN {k2_lib_ms:.3f}, bound {k2_bound:.3f})")
+    log(f"[mesh] {card}: world-1 NCCL step {p22['a']['mesh_ms']:.2f} ms vs "
+        f"bare {p22['a']['bare_ms']:.2f} ms; phase 22 "
+        f"{p22['seconds']:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -50,7 +50,7 @@ def test_cli_overrides_map_to_config(monkeypatch):
     for k in ("preset", "name", "data_dir", "tb_dir", "synthetic",
               "vgg16_path", "resume"):
         assert got[k] == want[k], k
-    assert got["device"] == "cpu" and "mesh" not in got
+    assert got["device"] == "cpu" and got.get("mesh") is None
     cfg = got["cfg"]
     assert cfg.fcn_epochs == 3 and cfg.fcn_lr == 0.01
     assert cfg.train_unseen == (2, 3) and cfg.bucket == (96, 96)
@@ -67,8 +67,10 @@ def test_cli_resume_and_device_flags(monkeypatch):
 
 @pytest.mark.parametrize("argv,exc", [
     (["-c", "99"], SystemExit),
+    # a mesh run is one process per rank: without torchrun's RANK /
+    # WORLD_SIZE it refuses to start
     (ARGV + ["--data_parallel", "2", "--batch_size", "2",
-             "--eval_batch_size", "2"], NotImplementedError),
+             "--eval_batch_size", "2"], RuntimeError),
 ])
 def test_cli_refusals(argv, exc):
     with pytest.raises(exc):
@@ -76,11 +78,14 @@ def test_cli_refusals(argv, exc):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(data_parallel=2, batch_size=2, eval_batch_size=2), "item 8"),
+    (dict(data_parallel=2, batch_size=2, eval_batch_size=2), "2 processes"),
     (dict(remat=True), "remat")])
 def test_run_experiment_refuses_unported_options(tmp_path, kw, match):
+    """remat is not ported; a 2-rank config without its mesh (one process)
+    is refused."""
     from zeroshotsemanticsegmentation_tpu_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match=match):
+    exc = ValueError if "data_parallel" in kw else NotImplementedError
+    with pytest.raises(exc, match=match):
         cli.run_experiment(get_config(14, **kw), data_dir=str(tmp_path),
                            synthetic=True, device="cpu")
 

@@ -599,3 +599,88 @@ def test_rowdot_kernel_matches_plain(rng, cuda, shape):
     a1 = flat[1:].view(shape)
     assert a1.data_ptr() % 16 != 0
     assert torch.equal(trd.rowdot(a1, b), got)
+
+
+# ---- the mesh layer (parallel/) on the card --------------------------------
+
+def _mesh_setup(cuda):
+    """tests/test_torch_parallel.py's inputs (1/16 width, 64x64, B=4),
+    with port-initialised weights."""
+    import torch_mesh_ranks as ranks
+    from zeroshotsemanticsegmentation_tpu_torch.models import FCN32s
+    _kernels.build(("szn_fused", "costail_fused"))  # before ranks spawn
+    rng = np.random.RandomState(1337)
+    batch = ranks.np_batch(rng, 4)
+    embed = rng.randn(8, 8).astype(np.float32)
+    embed /= np.linalg.norm(embed, axis=1, keepdims=True)
+    sd = FCN32s(8, channel_scale=ranks.SCALE, device=cuda,
+                generator=torch.Generator().manual_seed(0)).state_dict()
+    return ranks, batch, embed, sd
+
+
+def test_world1_nccl_mesh_step_equals_bare(cuda):
+    """`make_mesh(1, 1)` on a one-rank NCCL group: every collective of the
+    mesh path is called, and two Adam steps with dropout equal the bare
+    steps bit for bit (cuDNN deterministic)."""
+    import socket
+    import torch.distributed as dist
+    from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
+        init_distributed, make_mesh)
+    ranks, batch, embed, sd = _mesh_setup(cuda)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    init_distributed("nccl", f"tcp://localhost:{port}", 0, 1, timeout=60)
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = make_mesh(1, 1)
+        kw = dict(fused_tail=True, dropout=0.5, device=cuda)
+        bare = ranks.train_job(None, sd, batch, embed, **kw)
+        got = ranks.train_job(mesh, sd, batch, embed, **kw)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+    for k, v in bare["params"].items():
+        assert torch.equal(got["params"][k], v), k
+
+
+@pytest.mark.parametrize("sizes", [(2, 1), (1, 2), (2, 1, 1)],
+                         ids=["dp2", "tp2", "slice2"])
+def test_two_ranks_gloo_on_one_card(cuda, sizes):
+    """Two ranks sharing the card over gloo: the stage-1 step's gradients
+    (dropout on) and the predictor's labels vs one device."""
+    from zeroshotsemanticsegmentation_tpu_torch.parallel import dryrun
+    ranks, batch, embed, sd = _mesh_setup(cuda)
+    _hold_mesh_ranks(cuda, sizes, ["cuda:0"] * 2, "gloo")
+
+
+def test_nccl_mesh_across_cards(cuda):
+    """One rank a card over NCCL, on every card present (two or more):
+    DP, and DP x TP where the world is even and >= 4, vs one device."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    sizes = (n // 2, 2) if n >= 4 and n % 2 == 0 else (n, 1)
+    _hold_mesh_ranks(cuda, sizes, [f"cuda:{r}" for r in range(n)], "nccl")
+
+
+def _hold_mesh_ranks(cuda, sizes, devices, backend):
+    """The stage-1 step's gradients (dropout on) and the predictor's labels
+    of ranks on `devices` over `backend` vs one device: relative norm <
+    1e-4 a parameter, flips < 1e-4."""
+    from zeroshotsemanticsegmentation_tpu_torch.parallel import dryrun
+    ranks, batch, embed, sd = _mesh_setup(cuda)
+    jobs = {"train": ("train", dict(fused_tail=True, dropout=0.5, steps=1)),
+            "serve": ("serve", dict(unseen_classes=[1, 3]))}
+    sd_cpu = {k: v.cpu() for k, v in sd.items()}
+    out = dryrun.spawn(ranks.mesh_jobs, len(devices), (
+        sizes, devices, sd_cpu, batch, embed, jobs, backend), timeout_s=300)
+    ref = ranks.train_job(None, sd, batch, embed, fused_tail=True,
+                          dropout=0.5, steps=1, device=cuda)
+    labels = ranks.serve_job(None, sd, batch, embed, unseen_classes=[1, 3],
+                             device=cuda)
+    for r in out:
+        for k, g in ref["grads"].items():
+            d = (r["train"]["grads"][k].double() - g.double()).norm()
+            assert d / g.double().norm().clamp(min=1e-30) < 1e-4, k
+        assert (r["serve"] != labels).mean() < 1e-4

@@ -20,6 +20,8 @@ def _sources():
             if f.endswith(".py"):
                 yield osp.join(dirpath, f)
     yield osp.join(_ROOT, "chip_smoke.py")
+    # the mesh tests' rank functions, imported by spawned processes
+    yield osp.join(_ROOT, "tests", "torch_mesh_ranks.py")
     scripts = osp.join(_ROOT, "scripts")
     for f in os.listdir(scripts):
         if f.startswith("torch_") and f.endswith(".py"):
@@ -68,6 +70,8 @@ def test_import_loads_no_jax():
         "import zeroshotsemanticsegmentation_tpu_torch.models.quantized\n"
         "import zeroshotsemanticsegmentation_tpu_torch.cli.predict\n"
         "import zeroshotsemanticsegmentation_tpu_torch.cli.export\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.parallel.mesh\n"
+        "import zeroshotsemanticsegmentation_tpu_torch.parallel.dryrun\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'yaml', 'PIL', 'scipy', "
         "'zeroshotsemanticsegmentation_tpu'))\n"

@@ -157,7 +157,7 @@ def test_upscore_guard_matches_jax(rng):
                            [2, 5], upscore_trained=False, device="cpu")
     assert upscore_trained_numeric({}) is False
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_szn_predictor(port, None, embed, [2, 5], mesh=object(),
+        make_szn_predictor(port, None, embed, [2, 5], spatial=True,
                            device="cpu")
 
 

@@ -36,6 +36,22 @@ def test_model_products(shape, want):
         assert plan["k_chunk"] == shape[1]
 
 
+@pytest.mark.parametrize("rows,model", [(12, 2), (24, 2), (2, 2), (6, 4),
+                                        (3, 8)])
+def test_tp_shard_products(rows, model):
+    """The dot-free model's products on a mesh: `rows` samples a rank,
+    fc6 / fc7 split over `model` ranks (fc6's input gradient with K =
+    4096/model, fc7's weight gradient with M = 4096/model; the heads keep
+    fc7's full 4096 outputs). The TP shards keep tma, unsplit."""
+    px = rows * 17 * 17
+    for shape, want in [((px, 4096 // model, 25088, False), ("tma", 1)),
+                        ((4096 // model, px, 4096, True), ("tma", 1)),
+                        ((4096, px, 20, True),
+                         ("narrow", -(-px // tpd.NARROW_K_CHUNK)))]:
+        plan = _plan(*shape)
+        assert (plan["variant"], plan["splits"]) == want, shape
+
+
 @pytest.mark.parametrize("trans_a", [False, True])
 @pytest.mark.parametrize("m,k,n", [(8, 128, 128), (17, 21, 33),
                                    (130, 257, 140), (1, 300, 1)])

@@ -75,9 +75,14 @@ def test_validate_config_rejects_what_jax_rejects(case):
                                      eval_batch_size=2),
                                 dict(model_parallel=2)])
 def test_mesh_axes_above_one_are_not_ported(kw):
+    """Mesh axes above 1 validate as in the JAX package; a run then needs
+    one process per rank (`check_world_size`)."""
+    cfg = pp.PRESETS[14].replace(**kw)
     jp.validate_config(jp.PRESETS[14].replace(**kw))  # the JAX mesh path
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        pp.validate_config(pp.PRESETS[14].replace(**kw))
+    pp.validate_config(cfg)
+    pp.check_world_size(cfg, 2)
+    with pytest.raises(ValueError, match="needs 2 processes"):
+        pp.check_world_size(cfg, 1)
 
 
 @pytest.mark.parametrize("preset,kw", [

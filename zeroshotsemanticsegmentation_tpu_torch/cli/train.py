@@ -8,6 +8,18 @@ then seenmask stage, checkpoints, CSV/TB logs); ``--synthetic -ve 1 -se 1``
 is a smoke run without datasets. ``--device cpu`` runs the kernels' plain
 versions on the CPU; without a card and without it, the run raises.
 
+With ``--data_parallel`` / ``--model_parallel`` above 1 the run is one
+process per rank of that mesh, started by ``torchrun`` (its RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT):
+
+    torchrun --nproc_per_node 2 -m \\
+        zeroshotsemanticsegmentation_tpu_torch.cli.train -c 14 --data_parallel 2
+
+Each rank runs on the card LOCAL_RANK names (``--device cuda``, over
+nccl), or all on the one ``--device`` given (``cuda:0`` or ``cpu``, over
+gloo: nccl refuses two ranks on one card). Rank 0 alone writes logs and
+checkpoints.
+
 Not ported: fetching datasets and VGG16 weights (the JAX package's
 data/download.py and models/pretrained.py): a missing dataset raises its
 constructor's error, and a fresh run without VGG16 weights starts from a
@@ -18,27 +30,35 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import importlib.util
+import os
 import os.path as osp
+import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from zeroshotsemanticsegmentation_tpu_torch import resolve_device
 from zeroshotsemanticsegmentation_tpu_torch.configs import (
     PRESETS, get_config, run_name)
 from zeroshotsemanticsegmentation_tpu_torch.configs.presets import (
-    require_one_device)
+    check_world_size)
 from zeroshotsemanticsegmentation_tpu_torch.data import (
     BatchLoader, PascalContext, PascalVOC, SyntheticDataset,
     load_class_embeddings)
 from zeroshotsemanticsegmentation_tpu_torch.models import FCN8s, FCN32s
 from zeroshotsemanticsegmentation_tpu_torch.models.vgg_import import (
     load_vgg16_into_params)
+from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
+    init_distributed, make_mesh, opt_param_names, shard_model,
+    shard_opt_state, shard_params)
 from zeroshotsemanticsegmentation_tpu_torch.train import (
     FCNTrainer, SeenmaskTrainer, make_fcn_optimizer, make_seenmask_optimizer)
 from zeroshotsemanticsegmentation_tpu_torch.train import checkpoint as ckpt
 from zeroshotsemanticsegmentation_tpu_torch.utils import RunLogger
+from zeroshotsemanticsegmentation_tpu_torch.utils.logging import _TZ
 
 
 def _build_datasets(cfg, *, data_dir, synthetic):
@@ -62,15 +82,22 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
                    data_dir: str = "data", tb_dir: str | None = None,
                    log_dir: str | None = None, synthetic: bool = False,
                    vgg16_path: str | None = None, resume: str = "",
-                   verbose: bool = True, device: str = "cuda") -> dict:
+                   verbose: bool = True, device: str = "cuda",
+                   mesh=None) -> dict:
     """Build and run one experiment on `device`; returns a summary dict.
 
     Mirrors reference main() wiring: FCN trains on the *train_seen* loader,
     the seenmask stage on the *train* loader (train.py:144,185 — the
     asymmetry is the method); test modes only validate.
+
+    `mesh` (`parallel.mesh`, data_parallel x model_parallel ranks): every
+    rank calls this; the model is built and loaded whole, then sharded, and
+    runs on the mesh's device; rank 0 alone writes the log directory (its
+    name, with its time stamp, is rank 0's).
     """
-    dev = resolve_device(device)
-    require_one_device(cfg)
+    check_world_size(cfg, 1 if mesh is None else mesh.size)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    main_rank = mesh is None or mesh.rank == 0
     if cfg.remat:
         raise NotImplementedError("remat: rematerialization is not ported")
     if cfg.num_viz > 0 and importlib.util.find_spec("PIL") is None:
@@ -78,9 +105,10 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
         raise RuntimeError(
             f"num_viz={cfg.num_viz}: the viz tiles are written with Pillow, "
             "which is not installed; install it or set num_viz=0")
-    log_dir = log_dir or osp.join(data_dir, "logs",
-                                  run_name(preset, cfg, name=name))
-    logger = RunLogger(log_dir, tb_dir=tb_dir, verbose=verbose)
+    log_dir = log_dir or osp.join(data_dir, "logs", run_name(
+        preset, cfg, name=name, now=_start_time(mesh)))
+    logger = RunLogger(log_dir, tb_dir=tb_dir, verbose=verbose,
+                       enabled=main_rank)
     logger.dump_config(dataclasses.asdict(cfg))
 
     # 1. data
@@ -122,7 +150,9 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
                                      n_classes=cfg.num_classes))
 
     # 3. model + init: weights from `cfg.seed`; block 1's kernels ("auto")
-    # wherever the model is on the card
+    # wherever the model is on the card, on a mesh too: each rank runs them
+    # on its own rows (the JAX CLI turns them off under a mesh only because
+    # GSPMD cannot partition a Pallas body)
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else \
         torch.float32
     fb1 = cfg.fused_block1 == "on" or (cfg.fused_block1 == "auto"
@@ -179,12 +209,21 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
                 "(train.py:127-129) and results will not be comparable")
 
     # 4. stage-1 trainer; the reference restores the optimizer state
-    # whenever a checkpoint is loaded (train.py:134-135)
+    # whenever a checkpoint is loaded (train.py:134-135). On a mesh the
+    # model loaded whole is sharded first, and the optimizer built on its
+    # shards.
+    if mesh is not None:
+        shard_model(model, mesh)
     optimizer = make_fcn_optimizer(model, optim=cfg.fcn_optim, lr=cfg.fcn_lr)
     if checkpoint is not None and checkpoint["opt_state"] is not None:
         try:
-            optimizer.load_state_dict(checkpoint["opt_state"])
-        except ValueError as e:  # another optimizer's layout: fresh state
+            opt_state = checkpoint["opt_state"]
+            if mesh is not None:
+                opt_state = shard_opt_state(
+                    opt_state, opt_param_names(model, optimizer), mesh)
+            optimizer.load_state_dict(opt_state)
+        except (ValueError, IndexError) as e:
+            # another optimizer's layout: fresh state
             logger.stdout("WARNING: checkpoint optimizer state does not "
                           f"match the current optimizer ({e}); "
                           "reinitializing optimizer state")
@@ -193,7 +232,8 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
         train_loader=train_seen_loader, val_loader=val_loader, logger=logger,
         embeddings=embeddings, target_embeddings=target_embeddings,
         start_epoch=start_epoch, start_iteration=start_iteration,
-        best_mean_iu=best_mean_iu, upscore_trained=upscore_trained)
+        best_mean_iu=best_mean_iu, upscore_trained=upscore_trained,
+        mesh=mesh)
 
     summary = {"log_dir": log_dir}
     if cfg.mode == "train":
@@ -206,9 +246,13 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
             # to the loaded checkpoint, as the reference's `if not checkpoint`
             best_path = osp.join(log_dir, "best")
             if ckpt.checkpoint_exists(best_path):
-                best = ckpt.restore_checkpoint(best_path, model.state_dict())
+                best = ckpt.restore_checkpoint(best_path, model.state_dict(),
+                                               mesh=mesh)
             elif checkpoint is not None:
                 best = checkpoint
+                if mesh is not None:  # loaded whole, before the sharding
+                    best = {**best,
+                            "params": shard_params(best["params"], mesh)}
             else:
                 raise FileNotFoundError(
                     f"stage 2 needs a stage-1 checkpoint: no {best_path} and "
@@ -223,7 +267,7 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
                 cfg=cfg, model=model,
                 optimizer=make_seenmask_optimizer(model, lr=cfg.seenmask_lr),
                 train_loader=train_loader, val_loader=val_loader,
-                logger=logger)
+                logger=logger, mesh=mesh)
             seenmask_trainer.train(base_checkpoint={
                 "epoch": int(best["epoch"]),
                 "iteration": int(best["iteration"]),
@@ -237,6 +281,16 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
         summary["mean_iu"] = fcn_trainer.validate(both_fcn_and_seenmask=True)
     logger.close()
     return summary
+
+
+def _start_time(mesh) -> datetime.datetime | None:
+    """The run's start time for its log directory's name: on a mesh rank
+    0's, broadcast, so every rank names the same directory."""
+    if mesh is None:
+        return None
+    t = torch.tensor([time.time()], dtype=torch.float64, device=mesh.device)
+    dist.broadcast(t, 0)
+    return datetime.datetime.fromtimestamp(t.item(), _TZ)
 
 
 def _merge_params(params, loaded, logger=None) -> dict:
@@ -319,8 +373,38 @@ def _parse_args(argv=None):
                    help="path to a torch VGG16 state dict (.pth)")
     p.add_argument("--device", type=str, default="cuda",
                    help="device to run on (default cuda; cpu runs the "
-                        "kernels' plain versions)")
+                        "kernels' plain versions); on a mesh `cuda` is "
+                        "each rank's LOCAL_RANK card, and an explicit "
+                        "device is shared by every rank (over gloo)")
     return p.parse_args(argv)
+
+
+# a collective that waits longer fails the run: a full-width gradient
+# all-reduce takes seconds over gloo, a rank's validation and checkpoint
+# write some more
+DIST_TIMEOUT_S = 600.0
+
+
+def _mesh_from_env(cfg, args):
+    """The data_parallel x model_parallel mesh of this torchrun rank (the
+    JAX CLI builds its mesh from the same flags)."""
+    env = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE")}
+    if None in env.values():
+        raise RuntimeError(
+            f"--data_parallel {cfg.data_parallel} --model_parallel "
+            f"{cfg.model_parallel} runs one process per rank: start it "
+            f"with torchrun --nproc_per_node "
+            f"{cfg.data_parallel * cfg.model_parallel} (RANK / WORLD_SIZE "
+            "are not set)")
+    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    check_world_size(cfg, world)
+    # one card a rank takes nccl; ranks sharing a device (an explicit
+    # `cuda:0` or `cpu`) take gloo, since nccl refuses two ranks on a card
+    shared = args.device != "cuda"
+    devices = [torch.device(args.device)] * world if shared else None
+    init_distributed("gloo" if shared else "nccl", "env://", rank, world,
+                     timeout=DIST_TIMEOUT_S)
+    return make_mesh(cfg.data_parallel, cfg.model_parallel, devices=devices)
 
 
 def main(argv=None) -> dict:
@@ -365,10 +449,18 @@ def main(argv=None) -> dict:
         overrides["load_fcn_path"] = args.resume
 
     cfg = get_config(args.config, **overrides)
-    return run_experiment(cfg, preset=args.config, name=args.name,
-                          data_dir=args.data_dir, tb_dir=args.tb_dir,
-                          synthetic=args.synthetic, vgg16_path=args.vgg16,
-                          resume=args.resume, device=args.device)
+    mesh = None
+    if cfg.data_parallel * cfg.model_parallel > 1:
+        mesh = _mesh_from_env(cfg, args)
+    try:
+        return run_experiment(cfg, preset=args.config, name=args.name,
+                              data_dir=args.data_dir, tb_dir=args.tb_dir,
+                              synthetic=args.synthetic,
+                              vgg16_path=args.vgg16, resume=args.resume,
+                              device=args.device, mesh=mesh)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -140,13 +140,16 @@ def get_config(preset: int, **overrides) -> Config:
     return cfg
 
 
-def require_one_device(cfg: Config) -> None:
-    """The port runs on one device: mesh axes above 1 raise."""
-    if cfg.data_parallel > 1 or cfg.model_parallel > 1:
-        raise NotImplementedError(
-            f"data_parallel={cfg.data_parallel}, model_parallel="
-            f"{cfg.model_parallel}: multi-device runs are not ported yet "
-            "(ROADMAP.md queue 1 item 8)")
+def check_world_size(cfg: Config, world_size: int) -> None:
+    """A run takes one process per rank of its data x model mesh: the
+    world size must equal data_parallel x model_parallel."""
+    need = cfg.data_parallel * cfg.model_parallel
+    if world_size != need:
+        raise ValueError(
+            f"data_parallel={cfg.data_parallel} x model_parallel="
+            f"{cfg.model_parallel} needs {need} processes, the run has "
+            f"{world_size} (start one per rank, e.g. torchrun "
+            f"--nproc_per_node {need})")
 
 
 def validate_config(cfg: Config) -> None:
@@ -201,7 +204,6 @@ def validate_config(cfg: Config) -> None:
         raise ValueError(f"unknown fused_block1 {cfg.fused_block1!r}")
     if len(cfg.bucket) != 2 or min(cfg.bucket) < 1:
         raise ValueError(f"bucket must be two positive ints, got {cfg.bucket}")
-    require_one_device(cfg)
 
 
 def run_name(preset: int, cfg: Config, *, name: str | None = None,

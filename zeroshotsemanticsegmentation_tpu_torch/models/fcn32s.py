@@ -25,6 +25,14 @@ the explicit `torch.Generator` `g`; without `train` there is no dropout.
 2's frozen backbone: no backbone backward is built, and block 1 takes its
 no-gradient kernel).
 
+On a mesh (`parallel.mesh.shard_model` sets `mesh` and splits fc6 / fc7)
+the forward runs this rank's rows with fc6 on its output-channel shard
+(input through `copy_to_model`: its gradient is all-reduced over 'model')
+and fc7 on its input-channel shard (product all-reduced over 'model', then
+the replicated bias, once). Dropout draws the GLOBAL (batch, channel) mask
+from the generator on every rank and keeps this rank's rows and channels,
+so a mesh step draws the masks of the one-device step.
+
 Public layouts are NHWC: images (B, H, W, 3) in, heads (B, h, w, C) out.
 """
 
@@ -47,6 +55,8 @@ from zeroshotsemanticsegmentation_tpu_torch.ops.conv1x1 import (
     conv1x1_mmwgrad)
 from zeroshotsemanticsegmentation_tpu_torch.ops.conv7x7 import (
     conv_valid_mmgrad)
+from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
+    copy_to_model, reduce_from_model)
 
 _PAD_CONV1 = 100
 _UPSAMPLE_STRIDE = 32
@@ -113,6 +123,7 @@ class VGGTrunk(nn.Module):
                                   device=device)
         self.seenmask_score = nn.Conv2d(self.width(4096), 2, 1, device=device)
         self.dropout_rate = dropout_rate
+        self.mesh = None  # set by parallel.mesh.shard_model
 
     def width(self, f: int) -> int:
         return max(8, int(f * self.channel_scale))
@@ -135,11 +146,17 @@ class VGGTrunk(nn.Module):
 
     def _fc(self, name: str, h: torch.Tensor) -> torch.Tensor:
         """fc6 (7x7) or a 1x1 layer (fc7 and the heads) through its
-        matmul-gradient op, + bias in the compute dtype."""
+        matmul-gradient op, + bias in the compute dtype; on a mesh fc6 and
+        fc7 are its TP layers."""
         conv = getattr(self, name)
+        mesh = self.mesh
+        if mesh is not None and name == "fc6":
+            h = copy_to_model(h, mesh)
         op = conv_valid_mmgrad if name == "fc6" else conv1x1_mmwgrad
-        return (op(h, conv.weight.to(self.dtype))
-                + conv.bias.to(self.dtype)[:, None, None])
+        y = op(h, conv.weight.to(self.dtype))
+        if mesh is not None and name == "fc7":
+            y = reduce_from_model(y, mesh)
+        return y + conv.bias.to(self.dtype)[:, None, None]
 
     def _weight_bias(self, name: str):
         conv = getattr(self, name)
@@ -175,9 +192,12 @@ class VGGTrunk(nn.Module):
         return pools
 
     def _dropout(self, h: torch.Tensor, train: bool,
-                 generator: torch.Generator | None) -> torch.Tensor:
+                 generator: torch.Generator | None,
+                 split_channels: bool = False) -> torch.Tensor:
         """Channel dropout on NCHW `h`: one keep draw per (sample, channel)
-        from `generator`, kept channels scaled by 1/(1 - rate)."""
+        from `generator`, kept channels scaled by 1/(1 - rate). On a mesh
+        the draw covers the global batch (and, with `split_channels`, all
+        model ranks' channels) and this rank's part of it is kept."""
         rate = self.dropout_rate
         if not train or rate == 0.0:
             return h
@@ -187,8 +207,18 @@ class VGGTrunk(nn.Module):
             raise ValueError(f"{type(self).__name__}: a training forward "
                              "with dropout needs an explicit torch.Generator")
         keep = 1.0 - rate
-        mask = torch.rand((h.shape[0], h.shape[1], 1, 1), generator=generator,
-                          device=h.device) < keep
+        b, c = h.shape[0], h.shape[1]
+        mesh = self.mesh
+        if mesh is None:
+            mask = torch.rand((b, c, 1, 1), generator=generator,
+                              device=h.device) < keep
+        else:
+            ms = mesh.model_size if split_channels else 1
+            mr = mesh.model_rank if split_channels else 0
+            mask = torch.rand((b * mesh.data_size, c * ms, 1, 1),
+                              generator=generator, device=h.device) < keep
+            mask = mask[mesh.data_rank * b:(mesh.data_rank + 1) * b,
+                        mr * c:(mr + 1) * c]
         return torch.where(mask, h / keep, torch.zeros_like(h))
 
     def _trunk(self, x: torch.Tensor, train: bool,
@@ -198,7 +228,7 @@ class VGGTrunk(nn.Module):
         with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
             pools = self._blocks(x)
             h = self._dropout(torch.relu(self._fc("fc6", pools[4])), train,
-                              generator)
+                              generator, split_channels=True)
             h = self._dropout(torch.relu(self._fc("fc7", h)), train,
                               generator)
         return h, pools

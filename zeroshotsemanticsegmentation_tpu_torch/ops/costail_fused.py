@@ -20,6 +20,11 @@ The kernels take the embedding rows already normalised (`l2_normalize`);
 selecting a normalised row equals normalising the selected target. Only
 `score` is differentiable: losses and score sum carry gradients, the
 histogram does not, the embeddings are constants.
+
+On a mesh (`parallel.mesh`) each rank calls it on its own rows, as the JAX
+package's shard_map runs the kernels per data shard: the plan is that of
+the local batch, the per-sample losses stay local, and the train step sums
+the histogram and the score sum over the data group.
 """
 
 from __future__ import annotations

@@ -24,6 +24,11 @@ kernel takes it as a bit mask of the seen classes (`kernel_partition`,
 checked on the host)
 and its launch plan from `k1_plan`, so a request copies nothing from host
 memory.
+
+On a mesh (`parallel.mesh`) each rank calls these on its own rows, as the
+JAX package's shard_map runs the kernel per data shard: the plan is that
+of the local batch, and the callers (the eval steps, serving) sum the
+histograms or gather the labels over the data group.
 """
 
 from __future__ import annotations

@@ -8,6 +8,11 @@ without raw heads (FCN-8s, whose fcn head fuses the pool3/pool4 skips at
 several resolutions) takes the unfused route: its full-resolution heads,
 then the NNE of `ops.nne`. `int8=True` swaps the FCN-32s backbone for the
 int8 forward of `models.quantized`. It runs under `torch.inference_mode()`.
+
+`mesh=` (`parallel.mesh`) serves a batch sharded over the data axes with
+fc6 / fc7 split over 'model': every rank is given the same global batch,
+runs its rows through the same route and kernels, and gets the global
+labels back (an all-reduce over the data group).
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from zeroshotsemanticsegmentation_tpu_torch.ops.metrics import (
 from zeroshotsemanticsegmentation_tpu_torch.ops.nne import infer_labels_szn
 from zeroshotsemanticsegmentation_tpu_torch.ops.szn_fused import (
     infer_labels_szn_fused)
+from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
+    gather_rows, shard_batch, shard_model, shard_params)
 
 _UPSCORE_KEY = "seenmask_upscore.weight"
 
@@ -71,21 +78,42 @@ def make_szn_predictor(model: torch.nn.Module,
     first); FCN32s only. An architecture without raw heads serves through
     the unfused full-resolution route.
 
-    `mesh` and `spatial` serving are not ported yet (ROADMAP.md).
+    `mesh`: the model is sharded over it (`parallel.shard_model`) unless
+    it already is, `params` is a full state dict, the device is the
+    mesh's, and every rank calls `predict` with the same global batch (its
+    size divisible by the data axes). Height-sharded (`spatial`) serving
+    and int8 on a mesh are not ported (ROADMAP.md).
     """
-    if mesh is not None or spatial:
+    if spatial:
         raise NotImplementedError(
-            "make_szn_predictor: mesh and spatial serving are not ported "
-            "yet; see ROADMAP.md queue 1")
+            "make_szn_predictor: spatial (height-sharded) serving is not "
+            "ported: every convolution of the pad-100 geometry needs a "
+            "halo exchange between ranks; see ROADMAP.md queue 1")
+    if int8 and mesh is not None:
+        raise NotImplementedError(
+            "make_szn_predictor: int8 serving on a mesh is not ported: each "
+            "quantized layer's activation scale is a max over the whole "
+            "batch and all channels, a MAX all-reduce per layer; see "
+            "ROADMAP.md queue 1")
     raw_heads = getattr(model, "RAW_HEADS", False)
     if int8 and not raw_heads:
         raise ValueError(
             "int8 serving implements only the raw-heads (FCN32s) forward "
             "(models/quantized.py); it is unavailable for this architecture")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     model = model.to(dev).eval()
+    if mesh is not None and getattr(model, "mesh", None) is None:
+        if params is not None:
+            model.load_state_dict(params, strict=True)
+            params = None
+        shard_model(model, mesh)
+    if getattr(model, "mesh", None) is not mesh:
+        raise ValueError("make_szn_predictor: the model is sharded over "
+                         "another mesh than `mesh`")
     if params is not None:
-        model.load_state_dict(params, strict=True)
+        model.load_state_dict(
+            params if mesh is None else shard_params(params, mesh),
+            strict=True)
     state = model.state_dict()
     numeric = upscore_trained_numeric(state)
     if upscore_trained is None:
@@ -135,4 +163,12 @@ def make_szn_predictor(model: torch.nn.Module,
                                             unseen_vec, out_hw)
         return torch.where(pixel_unseen, unseen_lbl, seen_lbl)
 
-    return predict
+    if mesh is None:
+        return predict
+
+    @torch.inference_mode()
+    def predict_sharded(images) -> torch.Tensor:
+        rows = shard_batch({"image": torch.as_tensor(images)}, mesh)["image"]
+        return gather_rows(predict(rows), mesh)
+
+    return predict_sharded

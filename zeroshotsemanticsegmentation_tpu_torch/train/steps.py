@@ -18,6 +18,16 @@ backward exists. An eval step takes `(model, batch)` and runs without
 autograd; with `fused=True` its labels come from the raw 1/32 heads
 through the fused SZN-labels kernel (K1) and its loss from a per-sample
 upsample, so no full-resolution score volume is kept.
+
+Every factory takes `mesh=` (`parallel.mesh`): the step then runs this
+rank's rows of the global batch (`shard_batch`; "num_real" stays global),
+each kernel on the local batch, and fc6 / fc7 split over 'model'. A train
+step sums the gradients over the data group (`all_reduce_grads`) after
+the last microbatch (the loss is over the global "num_real", so the sum is
+the global gradient), and its "loss", "hist" and "score_sum" in one
+all-reduce;
+an eval step sums "loss_sum", "hists" and "score_sum", and its "pred" is
+the local rows.
 """
 
 from __future__ import annotations
@@ -42,6 +52,8 @@ from zeroshotsemanticsegmentation_tpu_torch.ops.nne import (
     infer_labels, infer_labels_forced_unseen, infer_labels_szn)
 from zeroshotsemanticsegmentation_tpu_torch.ops.szn_fused import (
     infer_labels_nne_fused, infer_labels_szn_fused)
+from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
+    all_reduce_grads, reduce_sums, shard_batch)
 from zeroshotsemanticsegmentation_tpu_torch.train.state import TrainState
 
 
@@ -115,6 +127,18 @@ def _fcn_infer(score, label, embeddings, forced_unseen, unseen_vec):
     return infer_labels(score, embeddings)
 
 
+def _local_rows(model, batch, mesh, chunks: int = 1):
+    """This rank's rows of the global batch (of each of its `chunks`
+    microbatches; the batch itself off a mesh). The model must be sharded
+    over the same mesh."""
+    if mesh is None:
+        return batch
+    if getattr(model, "mesh", None) is not mesh:
+        raise ValueError("a mesh step needs the model sharded over its mesh: "
+                         "parallel.shard_model(model, mesh)")
+    return shard_batch(batch, mesh, chunks)
+
+
 def _denom(num_real, dev) -> torch.Tensor:
     """max(num_real, 1) as an fp32 device scalar, without a host sync."""
     if torch.is_tensor(num_real):
@@ -122,11 +146,19 @@ def _denom(num_real, dev) -> torch.Tensor:
     return torch.full((), max(float(num_real), 1.0), device=dev)
 
 
+def _sum_over_data(out: dict, keys, mesh) -> dict:
+    """`out` with its `keys` summed over the mesh's data group (no mesh:
+    as it is)."""
+    if mesh is None:
+        return out
+    return {**out, **reduce_sums({k: out[k] for k in keys}, mesh)}
+
+
 def make_fcn_train_step(*, loss_name: str, num_classes: int,
                         embeddings=None, target_embeddings=None,
                         forced_unseen: bool = False, all_unseen_vec=None,
                         chunked_loss: bool = False, grad_accum: int = 1,
-                        fused_tail: bool | None = None):
+                        fused_tail: bool | None = None, mesh=None):
     """Stage-1 train step: returns `train_step(state, batch, generator)` ->
     (state, aux). The model and optimizer travel in the `TrainState`.
 
@@ -144,7 +176,9 @@ def make_fcn_train_step(*, loss_name: str, num_classes: int,
     head, upsampling one sample at a time (numerically the same).
     `grad_accum` = k splits the batch into k microbatches whose backward
     passes run in turn; each loss is normalised by the whole batch, so the
-    summed gradient is the whole batch's. `fused_tail` (None means on) takes
+    summed gradient is the whole batch's; on a mesh microbatch i is the
+    global batch's i-th, each rank running its rows of it (`shard_batch`'s
+    `chunks`), as the JAX step splits it. `fused_tail` (None means on) takes
     `fused_cos_tail` where it applies: cos loss, NNE embeddings with
     num_classes rows, no forced_unseen, no chunked_loss.
     """
@@ -203,6 +237,7 @@ def make_fcn_train_step(*, loss_name: str, num_classes: int,
     def train_step(state: TrainState, batch, generator=None):
         model, optimizer = state.model, state.optimizer
         dev = next(model.parameters()).device
+        batch = _local_rows(model, batch, mesh, grad_accum)
         images, labels = _prepare_batch(batch, dev)
         denom = _denom(batch["num_real"], dev)
         b = images.shape[0]
@@ -218,9 +253,13 @@ def make_fcn_train_step(*, loss_name: str, num_classes: int,
                                                  labels[sl], denom, generator)
             loss, score_sum, hist = loss + mloss, score_sum + mssum, \
                 hist + mhist
-        aux = {"loss": loss, "hist": hist, "score_sum": score_sum,
-               # reference per-iter stdout prints these
-               "score_fr_grad_sum": model.score_fr.weight.grad.sum()}
+        if mesh is not None:
+            all_reduce_grads(model.parameters(), mesh)
+        aux = _sum_over_data({"loss": loss, "hist": hist,
+                              "score_sum": score_sum},
+                             ("loss", "hist", "score_sum"), mesh)
+        # reference per-iter stdout prints this
+        aux["score_fr_grad_sum"] = model.score_fr.weight.grad.sum()
         optimizer.step()
         return dataclasses.replace(state, step=state.step + 1), aux
 
@@ -252,7 +291,7 @@ def _unseen_or_none(vec, num_classes: int) -> np.ndarray:
 def make_fcn_eval_step(*, loss_name: str, num_classes: int,
                        embeddings=None, target_embeddings=None,
                        forced_unseen: bool = False, all_unseen_vec=None,
-                       val_unseen_vec=None, fused: bool = False):
+                       val_unseen_vec=None, fused: bool = False, mesh=None):
     """Stage-1 eval step (reference Trainer.forward): returns
     `eval_step(model, batch)` -> {"loss_sum", "hists" (3, n, n) int32 (all /
     seen / unseen true classes by `val_unseen_vec`), "pred" (B, H, W) int32,
@@ -274,6 +313,7 @@ def make_fcn_eval_step(*, loss_name: str, num_classes: int,
     @torch.no_grad()
     def eval_step(model, batch):
         dev = next(model.parameters()).device
+        batch = _local_rows(model, batch, mesh)
         images, labels = _prepare_batch(batch, dev)
         emb, temb, unseen, val_unseen = consts(dev)
         if use_fused:
@@ -287,17 +327,18 @@ def make_fcn_eval_step(*, loss_name: str, num_classes: int,
                                     zip(score, labels)]).sum()
             pred = _fcn_infer(score, labels, emb, forced_unseen, unseen)
             score_sum = torch.sum(score.to(torch.float32))
-        return {"loss_sum": loss_sum,
-                "hists": zeroshot_hists(labels, pred, num_classes,
-                                        val_unseen),
-                "pred": pred, "score_sum": score_sum}
+        return _sum_over_data(
+            {"loss_sum": loss_sum,
+             "hists": zeroshot_hists(labels, pred, num_classes, val_unseen),
+             "pred": pred, "score_sum": score_sum},
+            ("loss_sum", "hists", "score_sum"), mesh)
 
     return eval_step
 
 
 def make_szn_eval_step(*, loss_name: str, num_classes: int, embeddings,
                        target_embeddings=None, all_unseen_vec=None,
-                       val_unseen_vec=None, fused: bool = False):
+                       val_unseen_vec=None, fused: bool = False, mesh=None):
     """Full-SZN eval step (reference Trainer.forward_szn,
     trainer_fcn.py:123-147): both heads, the seenmask-gated stitched NNE
     labels (`all_unseen_vec` partitions the classes), the fcn loss. Returns
@@ -319,6 +360,7 @@ def make_szn_eval_step(*, loss_name: str, num_classes: int, embeddings,
     @torch.no_grad()
     def eval_step(model, batch):
         dev = next(model.parameters()).device
+        batch = _local_rows(model, batch, mesh)
         images, labels = _prepare_batch(batch, dev)
         emb, temb, unseen, val_unseen = consts(dev)
         if fused:
@@ -333,10 +375,11 @@ def make_szn_eval_step(*, loss_name: str, num_classes: int, embeddings,
                                     zip(fcn_score, labels)]).sum()
             pred = infer_labels_szn(fcn_score, seenmask_score, emb, unseen)
             score_sum = torch.sum(fcn_score.to(torch.float32))
-        return {"loss_sum": loss_sum,
-                "hists": zeroshot_hists(labels, pred, num_classes,
-                                        val_unseen),
-                "pred": pred, "score_sum": score_sum}
+        return _sum_over_data(
+            {"loss_sum": loss_sum,
+             "hists": zeroshot_hists(labels, pred, num_classes, val_unseen),
+             "pred": pred, "score_sum": score_sum},
+            ("loss_sum", "hists", "score_sum"), mesh)
 
     return eval_step
 
@@ -366,7 +409,7 @@ def _seenmask_losses(score: torch.Tensor, target: torch.Tensor
                         for s, t in zip(score, target)])
 
 
-def make_seenmask_train_step(*, seen_vec):
+def make_seenmask_train_step(*, seen_vec, mesh=None):
     """Stage-2 train step: cross-entropy on the 2-channel seenmask head,
     backbone frozen. Returns `train_step(state, batch, generator)` ->
     (state, aux); batch as for `make_fcn_train_step`, "sizes" required.
@@ -382,6 +425,7 @@ def make_seenmask_train_step(*, seen_vec):
     def train_step(state: TrainState, batch, generator=None):
         model, optimizer = state.model, state.optimizer
         dev = next(model.parameters()).device
+        batch = _local_rows(model, batch, mesh)
         images, labels = _prepare_batch(batch, dev)
         (seen,) = consts(dev)
         target = _seenmask_target(
@@ -392,18 +436,21 @@ def make_seenmask_train_step(*, seen_vec):
         loss = _seenmask_losses(score, target).sum() / _denom(
             batch["num_real"], dev)
         loss.backward()
+        if mesh is not None:
+            all_reduce_grads(model.parameters(), mesh)
         pred = torch.argmax(score.detach(), dim=-1).to(torch.int32)
-        aux = {"loss": loss.detach(),
-               "hist": confusion_matrix(target, pred, 2),
-               "score_sum": torch.sum(score.detach().to(torch.float32)),
-               "seenmask_grad_sum": model.seenmask_score.weight.grad.sum()}
+        aux = _sum_over_data(
+            {"loss": loss.detach(), "hist": confusion_matrix(target, pred, 2),
+             "score_sum": torch.sum(score.detach().to(torch.float32))},
+            ("loss", "hist", "score_sum"), mesh)
+        aux["seenmask_grad_sum"] = model.seenmask_score.weight.grad.sum()
         optimizer.step()
         return dataclasses.replace(state, step=state.step + 1), aux
 
     return train_step
 
 
-def make_seenmask_eval_step(*, seen_vec):
+def make_seenmask_eval_step(*, seen_vec, mesh=None):
     """Stage-2 eval step: returns `eval_step(model, batch)` -> {"loss_sum",
     "hists" (1, 2, 2) int32, "pred", "score_sum"}, device tensors."""
     consts = _device_consts(_host(seen_vec, np.float32))
@@ -411,15 +458,17 @@ def make_seenmask_eval_step(*, seen_vec):
     @torch.no_grad()
     def eval_step(model, batch):
         dev = next(model.parameters()).device
+        batch = _local_rows(model, batch, mesh)
         images, labels = _prepare_batch(batch, dev)
         (seen,) = consts(dev)
         target = _seenmask_target(
             labels, torch.as_tensor(batch["sizes"], device=dev), seen)
         score = model(images, mode="seenmask")
         pred = torch.argmax(score, dim=-1).to(torch.int32)
-        return {"loss_sum": _seenmask_losses(score, target).sum(),
-                "hists": confusion_matrix(target, pred, 2)[None],
-                "pred": pred,
-                "score_sum": torch.sum(score.to(torch.float32))}
+        return _sum_over_data(
+            {"loss_sum": _seenmask_losses(score, target).sum(),
+             "hists": confusion_matrix(target, pred, 2)[None], "pred": pred,
+             "score_sum": torch.sum(score.to(torch.float32))},
+            ("loss_sum", "hists", "score_sum"), mesh)
 
     return eval_step

@@ -15,6 +15,13 @@ metrics stay on the device until `StepLogBuffer` reads `log_flush_steps` of
 them back in one copy. Dropout draws from a generator reseeded from (seed,
 step) before every step, so a resumed run draws the masks of an
 uninterrupted one.
+
+On a mesh (`mesh=`, the model already sharded by `parallel.shard_model`)
+every rank iterates the same global batches (the same loader and seed) and
+its steps take their rows; validation's sums are summed over the data
+group inside the eval steps. Log rows, viz tiles and checkpoint files come
+from rank 0 alone (the other ranks' `RunLogger` is disabled); every rank
+joins the checkpoint's gathers and barrier.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ from zeroshotsemanticsegmentation_tpu_torch.data.transforms import (
     batch_image_rgb)
 from zeroshotsemanticsegmentation_tpu_torch.ops.metrics import (
     hist_to_metrics, unseen_mask_vector)
+from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
+    gather_rows, opt_param_names)
 from zeroshotsemanticsegmentation_tpu_torch.train import checkpoint as ckpt
 from zeroshotsemanticsegmentation_tpu_torch.train.state import TrainState
 from zeroshotsemanticsegmentation_tpu_torch.train.steps import (
@@ -188,6 +197,16 @@ def echo_feed(loader, device: torch.device, *, depth: int = 2,
 echo_feed.last_stats = None
 
 
+def viz_rows(pred: torch.Tensor, mesh) -> np.ndarray:
+    """A validation batch's predicted labels as a host array for the viz
+    tiles: on a mesh the global rows, gathered on every rank (every rank
+    draws the same tiles, so all join the gather; rank 0 alone saves
+    them)."""
+    if mesh is not None:
+        pred = gather_rows(pred, mesh)
+    return pred.cpu().numpy()
+
+
 class StepLogBuffer:
     """Deferred per-step log emission: reading a step's metrics right after
     queueing it would make the host wait for the device every step. Each
@@ -237,7 +256,8 @@ class FCNTrainer:
     def __init__(self, *, cfg, model, optimizer, train_loader, val_loader,
                  logger, embeddings=None, target_embeddings=None,
                  start_epoch: int = 0, start_iteration: int = 0,
-                 best_mean_iu: float = 0.0, upscore_trained: bool):
+                 best_mean_iu: float = 0.0, upscore_trained: bool,
+                 mesh=None):
         self.cfg = cfg
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -245,6 +265,7 @@ class FCNTrainer:
         self.epoch = start_epoch
         self.best_mean_iu = best_mean_iu
         self.device = next(model.parameters()).device
+        self.mesh = mesh
 
         n = cfg.num_classes
         self.n_class = n
@@ -281,7 +302,8 @@ class FCNTrainer:
                   target_embeddings=temb, forced_unseen=cfg.forced_unseen,
                   all_unseen_vec=all_unseen_vec)
         self._train_step = make_fcn_train_step(
-            chunked_loss=cfg.chunked_loss, grad_accum=cfg.grad_accum, **kw)
+            chunked_loss=cfg.chunked_loss, grad_accum=cfg.grad_accum,
+            mesh=mesh, **kw)
         # fused eval: the serving labels kernel (K1) inside validation;
         # "auto" = the model is on the card. Only a model with raw heads
         # can feed it; any other validates on the unfused route whatever
@@ -291,7 +313,7 @@ class FCNTrainer:
         fused = raw_heads and (
             fe == "on" or (fe == "auto" and self.device.type == "cuda"))
         self._eval_step = make_fcn_eval_step(
-            val_unseen_vec=val_unseen_vec, fused=fused, **kw)
+            val_unseen_vec=val_unseen_vec, fused=fused, mesh=mesh, **kw)
         # the fused SZN kernel upsamples the seenmask gate with the FIXED
         # bilinear taps: exact only while `seenmask_upscore` is untrained
         # (reference stage 2 trains it, train.py:304-307)
@@ -300,7 +322,7 @@ class FCNTrainer:
                 loss_name=cfg.fcn_loss, num_classes=n, embeddings=emb,
                 target_embeddings=temb, all_unseen_vec=all_unseen_vec,
                 val_unseen_vec=val_unseen_vec,
-                fused=fused and not self.upscore_trained)
+                fused=fused and not self.upscore_trained, mesh=mesh)
         else:
             self._szn_eval_step = None
         self._generator = torch.Generator(device=self.device)
@@ -342,7 +364,7 @@ class FCNTrainer:
             for batch_idx, (_, dbatch) in enumerate(feed):
                 # optional torch.profiler window (step 0 skipped: warm-up)
                 if (cfg.profile_steps and self.epoch == 0
-                        and batch_idx == 1):
+                        and batch_idx == 1 and log.enabled):
                     profiling.enter_context(
                         profile_trace(osp.join(log.log_dir, "profile")))
                 gen = step_generator(self._generator, cfg.seed,
@@ -386,7 +408,7 @@ class FCNTrainer:
             hists += out["hists"]
             n_images += batch["num_real"]
             if len(tiles) < cfg.num_viz:
-                pred = out["pred"].cpu().numpy()
+                pred = viz_rows(out["pred"], self.mesh)
                 for i in range(batch["num_real"]):
                     if len(tiles) >= cfg.num_viz:
                         break
@@ -399,8 +421,9 @@ class FCNTrainer:
 
         viz_dir = osp.join(log.log_dir,
                            "szn_viz" if both_fcn_and_seenmask else "fcn_viz")
-        os.makedirs(viz_dir, exist_ok=True)
-        if tiles:
+        if log.enabled:
+            os.makedirs(viz_dir, exist_ok=True)
+        if tiles and log.enabled:
             tile = get_tile_image(tiles)
             save_image(osp.join(viz_dir, f"epoch{self.epoch}.jpg"), tile)
             log.image("fcn/segmentations", tile, self.epoch)
@@ -436,7 +459,9 @@ class FCNTrainer:
             log.log_dir, model_state=model.state_dict(),
             optim_state=self.state.optimizer.state_dict(), epoch=self.epoch,
             iteration=self.iteration, best_mean_iu=self.best_mean_iu,
-            is_best=is_best, upscore_trained=self.upscore_trained)
+            is_best=is_best, upscore_trained=self.upscore_trained,
+            mesh=self.mesh, optim_param_names=opt_param_names(
+                model, self.state.optimizer))
         return mean_iu
 
     def train(self) -> None:

@@ -16,6 +16,10 @@ model weights of the loaded stage-1 checkpoint, each save keeps that
 checkpoint's epoch, iteration, best mean IoU and optimizer state (the
 stage-1 moments in the reference's 16+16 layout), so a resume from it
 takes stage 1's next step.
+
+On a mesh (`mesh=`) the trainer works as `FCNTrainer` does on one: the
+same global batches on every rank, sums over the data group in the steps,
+logs, tiles and files from rank 0.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from zeroshotsemanticsegmentation_tpu_torch.train.steps import (
     make_seenmask_eval_step, make_seenmask_train_step)
 from zeroshotsemanticsegmentation_tpu_torch.train.trainer_fcn import (
     _METRIC_NAMES, TRAIN_HEADERS, StepLogBuffer, echo_feed,
-    prefetch_to_device, step_generator, val_headers)
+    prefetch_to_device, step_generator, val_headers, viz_rows)
 from zeroshotsemanticsegmentation_tpu_torch.viz import (
     get_tile_image, save_image, visualize_seenmask)
 
@@ -46,7 +50,7 @@ class SeenmaskTrainer:
     (`make_seenmask_optimizer`)."""
 
     def __init__(self, *, cfg, model, optimizer, train_loader, val_loader,
-                 logger, start_iteration: int = 0):
+                 logger, start_iteration: int = 0, mesh=None):
         self.cfg = cfg
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -54,6 +58,7 @@ class SeenmaskTrainer:
         self.epoch = 0
         self.best_mean_iu = 0.0
         self.device = next(model.parameters()).device
+        self.mesh = mesh
 
         n = cfg.num_classes
         # seen = classes not in train_unseen (reference train.py:192,
@@ -66,8 +71,10 @@ class SeenmaskTrainer:
         self.upscore_trained = "seenmask_upscore.weight" in model.state_dict()
         self.state = TrainState(model=model, optimizer=optimizer,
                                 step=int(start_iteration))
-        self._train_step = make_seenmask_train_step(seen_vec=seen_vec)
-        self._eval_step = make_seenmask_eval_step(seen_vec=seen_vec)
+        self._train_step = make_seenmask_train_step(seen_vec=seen_vec,
+                                                    mesh=mesh)
+        self._eval_step = make_seenmask_eval_step(seen_vec=seen_vec,
+                                                  mesh=mesh)
         self._generator = torch.Generator(device=self.device)
 
     @property
@@ -126,7 +133,7 @@ class SeenmaskTrainer:
             hist += out["hists"][0]
             n_images += batch["num_real"]
             if len(tiles) < cfg.num_viz:
-                pred = out["pred"].cpu().numpy()
+                pred = viz_rows(out["pred"], self.mesh)
                 for i in range(batch["num_real"]):
                     if len(tiles) >= cfg.num_viz:
                         break
@@ -141,8 +148,9 @@ class SeenmaskTrainer:
                         img=img, n_class=2))
 
         viz_dir = osp.join(log.log_dir, "seenmask_viz")
-        os.makedirs(viz_dir, exist_ok=True)
-        if tiles:
+        if log.enabled:
+            os.makedirs(viz_dir, exist_ok=True)
+        if tiles and log.enabled:
             tile = get_tile_image(tiles)
             save_image(osp.join(viz_dir, f"epoch{self.epoch}.jpg"), tile)
             log.image("seenmask/segmentations", tile, self.epoch)
@@ -170,7 +178,8 @@ class SeenmaskTrainer:
             epoch=base.get("epoch", self.epoch),
             iteration=base.get("iteration", self.iteration),
             best_mean_iu=base.get("best_mean_iu", self.best_mean_iu),
-            is_best=is_best, upscore_trained=self.upscore_trained)
+            is_best=is_best, upscore_trained=self.upscore_trained,
+            mesh=self.mesh)
         return mean_iu
 
     def train(self, *, base_checkpoint: dict | None = None) -> None:

@@ -8,6 +8,8 @@ an elapsed wall-clock column (US/Eastern epoch start, trainer_fcn.py:43).
 
 TensorBoard through tensorboardX when importable, silently off otherwise.
 `config.yaml` is written without PyYAML (`dump_yaml`): the config is flat.
+`enabled=False` makes a logger that writes nothing at all (the ranks of a
+mesh other than rank 0).
 """
 
 from __future__ import annotations
@@ -52,14 +54,17 @@ def dump_yaml(cfg_dict: dict) -> str:
 
 class RunLogger:
     def __init__(self, log_dir: str, *, tb_dir: str | None = None,
-                 tensorboard: bool = True, verbose: bool = True):
+                 tensorboard: bool = True, verbose: bool = True,
+                 enabled: bool = True):
         self.log_dir = log_dir
-        self.verbose = verbose
-        os.makedirs(log_dir, exist_ok=True)
+        self.enabled = enabled
+        self.verbose = verbose and enabled
+        if enabled:
+            os.makedirs(log_dir, exist_ok=True)
         self.timestamp_start = datetime.datetime.now(_TZ)
         self._csv_files: dict[str, object] = {}
         self._tb = None
-        if tensorboard:
+        if tensorboard and enabled:
             try:
                 from tensorboardX import SummaryWriter
             except ImportError:
@@ -81,6 +86,8 @@ class RunLogger:
     def csv_append(self, fname: str, headers: list[str], row: list) -> None:
         """Persistent handles, flushed per row: tailing a live run and a
         crash mid-run both see every logged row."""
+        if not self.enabled:
+            return
         f = self._csv_files.get(fname)
         if f is None:
             path = osp.join(self.log_dir, fname)
@@ -110,6 +117,8 @@ class RunLogger:
 
     def dump_config(self, cfg_dict: dict) -> None:
         """config.yaml + stdout + TB text (reference train.py:288-300)."""
+        if not self.enabled:
+            return
         for k, v in cfg_dict.items():
             self.stdout(f"{k} {v}")
         with open(osp.join(self.log_dir, "config.yaml"), "w") as f:
