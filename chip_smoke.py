@@ -163,7 +163,23 @@ Phases, each of which passes or ends the script with a non-zero exit:
    and call), TP=2 serving, the trained gate and FCN-8s's unfused route;
    (c) the train CLI with `--data_parallel 2` on two ranks, its files,
    checkpoint and resume. The kernels line carries each kernel's launches
-   on these paths, by rank.
+   on these paths, by rank;
+23. height-sharded serving and int8 serving on a mesh (`phase_spatial`):
+   (a) `make_szn_predictor(..., mesh=make_mesh(1, 1), spatial=True)` on a
+   one-rank NCCL group, FCN-32s at full width, B=1, 2048x2048: fp32 labels
+   vs the one-device predictor (flips < 1e-4), bf16 under the serving bar,
+   K2 and K1 once a call; K2 and K1 on the bands of this image's two-band
+   plan vs their plain versions (the bf16 bar of phase 4; flips < 1e-4)
+   and vs the whole call's rows (K1 equal); both predictors timed in turns
+   in bf16, and a profile window of each; (b) two ranks sharing the card
+   over gloo at 512x512 vs one device: spatial data=2 on the pristine
+   gate, the trained gate and FCN-8s (flips < 1e-4), int8 DP=2 and TP=2 at
+   B=8 and int8 spatial data=2 (equal to the one-device int8 labels: flips
+   < 1e-4; < 0.08 from the one-device bf16 labels); (c) one 4096x4096
+   image, bf16, over the two ranks: each rank's peak memory below 0.75x
+   the one-device run's.
+   The kernels line carries K1's and K2's launches on these paths, by
+   rank, and their band checks.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -2278,6 +2294,348 @@ def phase_mesh(dev, ckpt32, tmp, card, log, require) -> dict:
     return out
 
 
+SPATIAL_HW = 2048       # phase 23 (a): one image, B=1, world 1 over NCCL
+SPATIAL_MESH_HW = 512   # (b): two ranks over gloo
+SPATIAL_INT8_BATCH = 8  # (b)'s int8 DP=2 and TP=2
+SPATIAL_BIG_HW = 4096   # (c): the per-rank peak memory
+SPATIAL_TIMED = 3       # (a)'s calls a timing, two timings each in turn
+SPATIAL_PEAK_SHARE = 0.75
+
+
+def _labels_flip(a, b) -> float:
+    return (a != b).float().mean().item()
+
+
+def _spatial_rank(rank: int, world: int, init_method: str, hw: int,
+                  big_hw: int, scale: float, device: str | None) -> dict:
+    """Phase 23 (b) and (c)'s rank function: two ranks sharing the card
+    over gloo (or the CPU, for a small check of this code). Rank 0 runs
+    the one-device references; every rank reports its launch counts and
+    (c)'s peak memory."""
+    import torch
+    import torch.distributed as dist
+    from zeroshotsemanticsegmentation_tpu_torch.models.fcn8s import FCN8s
+    from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
+    from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
+        init_distributed, make_mesh)
+    from zeroshotsemanticsegmentation_tpu_torch.serving import (
+        make_szn_predictor)
+
+    dev = torch.device(device or "cuda:0")
+    cuda = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed("gloo", init_method, rank, world, timeout=300)
+    embed, _, batch, init_state, fresh = _mesh_kit(dev, hw, scale)
+    f32, bf16 = torch.float32, torch.bfloat16
+    main = rank == 0
+    out = {"rank": rank, "launches": {}, "checks": {}, "seconds": {}}
+    sd, sd8 = init_state(0), init_state(0, FCN8s)
+    trained = dict(sd)
+    g = torch.Generator().manual_seed(7)
+    trained["seenmask_upscore.weight"] = sd["seenmask_upscore.weight"] + (
+        0.05 * torch.randn(sd["seenmask_upscore.weight"].shape,
+                           generator=g)).to(dev)
+    img1 = batch(1, 31)["image"]
+    img8 = batch(SPATIAL_INT8_BATCH, 32)["image"]
+    meshes = {"dp2": lambda: make_mesh(2, 1, devices=[dev] * world),
+              "tp2": lambda: make_mesh(1, 2, devices=[dev] * world)}
+
+    def serve(mesh, images, state=sd, cls=None, dtype=f32, **kw):
+        m = fresh(state, dtype, dropout=0.0,
+                  **({} if cls is None else {"cls": cls}))
+        return make_szn_predictor(m, None, embed, UNSEEN, device=dev,
+                                  mesh=mesh, **kw)(images)
+
+    def counted(name, fn):
+        if cuda:
+            torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["launches"][name] = {k: v for k, v in
+                                 _kernels.launch_counts.items() if v}
+        return r
+
+    # (b): (mesh, images, state, class, flags); the reference is the same
+    # call on one device
+    runs = {"spatial_pristine": ("dp2", img1, sd, None, {"spatial": True}),
+            "spatial_trained": ("dp2", img1, trained, None,
+                                {"spatial": True}),
+            "spatial_fcn8s": ("dp2", img1, sd8, FCN8s, {"spatial": True}),
+            "int8_dp2": ("dp2", img8, sd, None, {"int8": True}),
+            "int8_tp2": ("tp2", img8, sd, None, {"int8": True}),
+            "int8_spatial": ("dp2", img1, sd, None,
+                             {"spatial": True, "int8": True})}
+    for name, (mname, images, state, cls, kw) in runs.items():
+        got = counted(name, lambda: serve(meshes[mname](), images, state,
+                                          cls, **kw))
+        if main:
+            int8 = kw.get("int8", False)
+            want = serve(None, images, state, cls, int8=int8)
+            chk = {"shape": list(got.shape),
+                   "flips": _labels_flip(got, want)}
+            if int8:
+                chk["flips_vs_bf16"] = _labels_flip(
+                    got, serve(None, images, state, cls, dtype=bf16))
+            out["checks"][name] = chk
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # (c): one big image in bf16, rank 0 on one device first; peaks from
+    # a reset with the model's weights and the image already allocated
+    gen = torch.Generator(device=dev).manual_seed(33)
+    big = torch.randn((1, big_hw, big_hw, 3), generator=gen,
+                      device=dev) * 40
+    if main:
+        m = fresh(sd, bf16, dropout=0.0)
+        pred = make_szn_predictor(m, None, embed, UNSEEN, device=dev)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        base = counted("big_one_device", lambda: pred(big)).cpu()
+        if cuda:
+            out["checks"]["peak_one_device"] = (
+                torch.cuda.max_memory_allocated())
+        del m, pred
+    dist.barrier()
+    m = fresh(sd, bf16, dropout=0.0)
+    pred = make_szn_predictor(m, None, embed, UNSEEN, device=dev,
+                              mesh=meshes["dp2"](), spatial=True)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    got = counted("big_spatial", lambda: pred(big))
+    if cuda:
+        out["peak_spatial"] = torch.cuda.max_memory_allocated()
+    if main:
+        out["checks"]["big_flips_vs_one_device_bf16"] = _labels_flip(
+            got.cpu(), base)
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def phase_spatial(dev, card, log, require) -> dict:
+    """Phase 23: height-sharded (spatial) serving and int8 serving on a
+    mesh (`parallel.spatial`, `models.quantized` with `mesh=`).
+
+    (a) world 1 over NCCL: FCN-32s at full width, B=1, 2048x2048, through
+        `make_szn_predictor(..., mesh=make_mesh(1, 1), spatial=True)`: fp32
+        labels vs the one-device predictor (flips < 1e-4), bf16 vs fp32
+        under the serving bar (at most 2x the one-device bf16 run's
+        flips), K2 and K1 once a call; the band calls of K2 and K1 on the
+        two-band plan of this image held against their plain versions
+        (and against the whole call's rows); then both predictors timed
+        in turns with CUDA events in bf16, the spatial path's cost, and a
+        profile window of each.
+    (b) two ranks sharing the card over gloo (`_spatial_rank`) at
+        512x512 vs one device: spatial data=2 (B=1) on the pristine gate
+        (K2, K1 once a rank), the trained gate (K1 twice) and FCN-8s (K2
+        once, K1 never), flips < 1e-4; int8 DP=2 and TP=2 at B=8 and int8
+        spatial data=2, each equal to the one-device int8 labels (flips <
+        1e-4) and within the int8 bar of the one-device bf16 labels (<
+        0.08), K1 once a rank, K2 never.
+    (c) a 4096x4096 image at B=1, bf16, over the same two ranks: each
+        rank's `torch.cuda.max_memory_allocated` below 0.75x the one-device
+        run's, and the labels vs the one-device bf16 labels (logged).
+    """
+    import torch
+    import torch.distributed as dist
+    from zeroshotsemanticsegmentation_tpu_torch.models.pruned import (
+        _image_rows)
+    from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
+    from zeroshotsemanticsegmentation_tpu_torch.ops import block1_fused as b1
+    from zeroshotsemanticsegmentation_tpu_torch.ops import szn_fused as sz
+    from zeroshotsemanticsegmentation_tpu_torch.parallel import dryrun
+    from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
+        init_distributed, make_mesh)
+    from zeroshotsemanticsegmentation_tpu_torch.parallel.spatial import (
+        plan_bands)
+    from zeroshotsemanticsegmentation_tpu_torch.serving import (
+        make_szn_predictor)
+
+    out = {}
+    t_phase = time.perf_counter()
+    embed, _, batch, init_state, fresh = _mesh_kit(dev, SPATIAL_HW, 1.0)
+    f32, bf16 = torch.float32, torch.bfloat16
+    sd = init_state(0)
+    img = batch(1, 23)["image"]
+
+    # ---- (a) world 1 over NCCL -------------------------------------------
+    init_distributed("nccl", f"tcp://localhost:{free_port()}", 0, 1,
+                     timeout=120)
+    mesh = make_mesh(1, 1)
+
+    def predictor(dtype, spatial):
+        return make_szn_predictor(
+            fresh(sd, dtype, dropout=0.0), None, embed, UNSEEN, device=dev,
+            mesh=mesh if spatial else None, spatial=spatial)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, {k: v for k, v in _kernels.launch_counts.items() if v}
+
+    one32, sp32 = predictor(f32, False), predictor(f32, True)
+    want32 = one32(img)
+    got32, la32 = counted(lambda: sp32(img))
+    del one32, sp32
+    one16, sp16 = predictor(bf16, False), predictor(bf16, True)
+    want16 = one16(img)
+    got16, la16 = counted(lambda: sp16(img))
+    flips32 = _labels_flip(got32, want32)
+    base = _labels_flip(want16, want32)
+    flips16 = _labels_flip(got16, want32)
+    log(f"[spatial a] world 1 nccl, B=1 {SPATIAL_HW}x{SPATIAL_HW}: fp32 "
+        f"flips vs one device {flips32:.3g}; bf16 flips vs fp32 "
+        f"{flips16:.4g} (one-device bf16 {base:.4g}, bar 2x); launches "
+        f"fp32 {la32}, bf16 {la16}")
+    require(got32.shape == want32.shape and flips32 < 1e-4,
+            f"world-1 spatial fp32 flips {flips32}")
+    require(flips16 <= 2 * base + 1e-6,
+            f"world-1 spatial bf16 misses the serving bar: {flips16} vs "
+            f"one-device {base}")
+    for la in (la32, la16):
+        require(la.get("block1_fused") == 1 and la.get("szn_fused") == 1,
+                f"world-1 spatial launches {la}")
+    times = {"one_device": [], "spatial": []}
+    for _ in range(2):
+        for name, fn in (("one_device", lambda: one16(img)),
+                         ("spatial", lambda: sp16(img))):
+            times[name].append(time_ms(fn, iters=SPATIAL_TIMED, warmup=1))
+    one_ms = float(np.mean(times["one_device"]))
+    sp_ms = float(np.mean(times["spatial"]))
+    log(f"[spatial a] {card}: B=1 {SPATIAL_HW}x{SPATIAL_HW} bf16 "
+        f"{one_ms:.2f} ms one device, {sp_ms:.2f} ms spatial on the world-1 "
+        f"NCCL mesh (runs {times}); cost {sp_ms - one_ms:+.2f} ms a call")
+    profiles = {"one_device": profile_window(lambda: one16(img), iters=3),
+                "spatial": profile_window(lambda: sp16(img), iters=3)}
+    for name, prof in profiles.items():
+        log(f"[spatial a] profile {name}: {json.dumps(prof)}")
+    del one16, sp16, got16, want16, got32, want32
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    out["a"] = {"flips_fp32": flips32, "flips_bf16_vs_fp32": flips16,
+                "flips_one_device_bf16": base, "launches_fp32": la32,
+                "launches_bf16": la16, "one_device_ms": one_ms,
+                "spatial_ms": sp_ms, "runs_ms": times, "profiles": profiles,
+                "card": card}
+
+    # the band calls of K2 and K1 on this image's two-band plan, vs their
+    # plain versions on the same inputs and vs the whole call's rows
+    plan = plan_bands(SPATIAL_HW, SPATIAL_HW, 2)
+    x = img.to(f32)
+    wts = [sd[f"conv1_{i}.{t}"] for i in (1, 2) for t in ("weight", "bias")]
+    s1 = 48  # K2's first output row on the pool1 grid (models.pruned)
+    e1 = s1 + (SPATIAL_HW + 6) // 2
+
+    def k2_input(lo, hi):
+        """K2's input for its output rows [lo, hi) of the pool1 grid, as
+        `run_pruned_blocks` slices it (even widths)."""
+        return _image_rows(x, 2 * (lo - s1) - 5, 2 * (hi - s1) - 1, bf16,
+                           5, 5)
+
+    k2 = {"max_abs_err": 0.0, "bit_equal_to_whole": True, "shapes": []}
+    with torch.inference_mode():
+        whole = b1.block1_fused(k2_input(s1, e1), *wts, bf16)
+        for r in range(2):
+            lo, hi = plan.rows(1, r)
+            lo, hi = max(lo, s1), min(hi, e1)
+            xp = k2_input(lo, hi)
+            got = b1.block1_fused(xp, *wts, bf16)
+            ref = b1.block1_plain(xp, *wts, f32)
+            err = (got.float() - ref).abs().max().item()
+            bar = 2 * ref.abs().max().item() * 2.0 ** -8
+            require(err <= bar, f"K2 band {r}: bf16 error {err} > {bar}")
+            k2["max_abs_err"] = max(k2["max_abs_err"], err)
+            k2["bit_equal_to_whole"] &= torch.equal(
+                got, whole[:, lo - s1:hi - s1])
+            k2["shapes"].append(list(xp.shape))
+    k1 = {"flips_vs_plain": 0.0, "equal_to_whole": True, "rows": []}
+    h32 = plan.heights[5] - 6
+    aug = torch.randn((1, h32, h32, 22), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(5))
+    uv = np.zeros(21, bool)
+    uv[UNSEEN] = True
+    part = sz._partition(~uv, uv)
+    whole = sz.szn_labels(aug, *part, SPATIAL_HW, SPATIAL_HW)
+    for r in range(2):
+        rows = plan.out_rows[r:r + 2]
+        got = sz.szn_labels(aug, *part, SPATIAL_HW, SPATIAL_HW, rows)
+        ref = sz.szn_labels_plain(aug, *part, SPATIAL_HW, SPATIAL_HW, rows)
+        fl = _labels_flip(got, ref)
+        require(fl < 1e-4, f"K1 band {rows}: flips vs plain {fl}")
+        k1["flips_vs_plain"] = max(k1["flips_vs_plain"], fl)
+        k1["equal_to_whole"] &= torch.equal(got, whole[:, rows[0]:rows[1]])
+        k1["rows"].append(list(rows))
+    require(k1["equal_to_whole"], "K1 on a band of rows differs from the "
+            "whole call's rows")
+    log(f"[spatial a] band calls: K2 {k2}; K1 {k1}")
+    out["k2_band"], out["k1_band"] = k2, k1
+    del whole, aug, x, img
+    torch.cuda.empty_cache()
+    out["seconds_a"] = time.perf_counter() - t_phase
+
+    # ---- (b), (c) two ranks sharing the card over gloo --------------------
+    t0 = time.perf_counter()
+    ranks = dryrun.spawn(_spatial_rank, 2, (SPATIAL_MESH_HW, SPATIAL_BIG_HW,
+                                            1.0, None), timeout_s=600)
+    out["seconds_bc"] = time.perf_counter() - t0
+    checks = ranks[0]["checks"]
+    for r in ranks:
+        log(f"[spatial b] rank {r['rank']} launches {r['launches']}")
+        log(f"[spatial b] rank {r['rank']} seconds "
+            + json.dumps({k: round(v, 3) for k, v in r["seconds"].items()}))
+    for name, c in checks.items():
+        log(f"[spatial b] {name}: {json.dumps(c)}")
+    want_launches = {
+        "spatial_pristine": {"block1_fused": 1, "szn_fused": 1},
+        "spatial_trained": {"block1_fused": 1, "szn_fused": 2},
+        "spatial_fcn8s": {"block1_fused": 1},
+        "int8_dp2": {"szn_fused": 1}, "int8_tp2": {"szn_fused": 1},
+        "int8_spatial": {"szn_fused": 1},
+        "big_spatial": {"block1_fused": 1, "szn_fused": 1}}
+    for r in ranks:
+        for name, want in want_launches.items():
+            got = {k: v for k, v in r["launches"][name].items()
+                   if k in ("block1_fused", "szn_fused")}
+            require(got == want, f"rank {r['rank']} {name}: launches "
+                    f"{r['launches'][name]}, want {want}")
+    for name in want_launches:
+        if name == "big_spatial":
+            continue
+        c = checks[name]
+        require(c["flips"] < 1e-4, f"two-rank {name} vs one device: {c}")
+        if name.startswith("int8"):
+            require(c["flips_vs_bf16"] < 0.08, f"{name} vs bf16: {c}")
+    one = checks["peak_one_device"]
+    peaks = {r["rank"]: r["peak_spatial"] for r in ranks}
+    log(f"[spatial c] {card}: B=1 {SPATIAL_BIG_HW}x{SPATIAL_BIG_HW} bf16 "
+        f"peak memory one device {one / 1e9:.3f} GB, spatial data=2 by rank "
+        + ", ".join(f"{r}: {p / 1e9:.3f} GB ({p / one:.3f}x)"
+                    for r, p in peaks.items())
+        + "; labels vs one device "
+        f"{checks['big_flips_vs_one_device_bf16']:.3g}")
+    for r, p in peaks.items():
+        require(p < SPATIAL_PEAK_SHARE * one,
+                f"rank {r}'s peak {p} is not below {SPATIAL_PEAK_SHARE}x the "
+                f"one-device peak {one}")
+    out["b"] = {"launches": {r["rank"]: r["launches"] for r in ranks},
+                "seconds": {r["rank"]: r["seconds"] for r in ranks},
+                "checks": checks}
+    out["c"] = {"peak_one_device": one, "peak_spatial": peaks}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[spatial] {card}: phase 23 {out['seconds']:.1f} s (a "
+        f"{out['seconds_a']:.1f}, b and c {out['seconds_bc']:.1f})")
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -3365,6 +3723,10 @@ def main() -> None:
         # ---- 22. multi-device -----------------------------------------------
         torch.cuda.empty_cache()
         p22 = phase_mesh(dev, tcli["checkpoint"], tmp, card, log, require)
+
+    # ---- 23. height-sharded serving, int8 serving on a mesh -----------------
+    torch.cuda.empty_cache()
+    p23 = phase_spatial(dev, card, log, require)
     l21 = p21["launches"]
 
     def launches22(key: str) -> dict:
@@ -3378,6 +3740,17 @@ def main() -> None:
                                for r, paths in p22["b"]["launches"].items()},
             "two_rank_cli": [c.get(key, 0)
                              for c in p22["c"]["launches_first"]]}}
+
+    def launches23(key: str) -> dict:
+        """One kernel's launches on phase 23's paths: (a) one spatial call
+        on the world-1 NCCL mesh in fp32 and in bf16, (b) and (c) each
+        two-rank path by rank."""
+        return {"launches_spatial": {
+            "world1_nccl": [p23["a"]["launches_fp32"].get(key, 0),
+                            p23["a"]["launches_bf16"].get(key, 0)],
+            "two_ranks_gloo": {str(r): {path: c.get(key, 0)
+                                        for path, c in paths.items()}
+                               for r, paths in p23["b"]["launches"].items()}}}
 
     def launches21(key: str) -> dict:
         """One kernel's launches on phase 21's paths."""
@@ -3393,6 +3766,7 @@ def main() -> None:
          "launches": launches["szn_fused"],
          "launches_train_cli": cli_launches["szn_fused"],
          **launches21("szn_fused"), **launches22("szn_fused"),
+         **launches23("szn_fused"), "band": p23["k1_band"],
          "launches_eval": evals["k1_launches"], "max_abs_err": k1_maxerr,
          "flip_rate": k1_flips, "flip_rate_k33": k33_flips,
          "flip_rate_ties": tie_flips, "ms": k1_ms,
@@ -3406,6 +3780,7 @@ def main() -> None:
          "launches": launches["block1_fused"],
          "launches_train_cli": cli_launches["block1_fused"],
          **launches21("block1_fused"), **launches22("block1_fused"),
+         **launches23("block1_fused"), "band": p23["k2_band"],
          "max_abs_err": k2_bf16_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms,
@@ -3558,6 +3933,10 @@ def main() -> None:
     log(f"[mesh] {card}: world-1 NCCL step {p22['a']['mesh_ms']:.2f} ms vs "
         f"bare {p22['a']['bare_ms']:.2f} ms; phase 22 "
         f"{p22['seconds']:.1f} s")
+    log(f"[spatial] {card}: B=1 {SPATIAL_HW}x{SPATIAL_HW} bf16 "
+        f"{p23['a']['spatial_ms']:.2f} ms spatial (world 1) vs "
+        f"{p23['a']['one_device_ms']:.2f} ms one device; peaks at "
+        f"{SPATIAL_BIG_HW}: {p23['c']}; phase 23 {p23['seconds']:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -656,12 +656,53 @@ def test_two_ranks_gloo_on_one_card(cuda, sizes):
 
 def test_nccl_mesh_across_cards(cuda):
     """One rank a card over NCCL, on every card present (two or more):
-    DP, and DP x TP where the world is even and >= 4, vs one device."""
+    DP, and DP x TP where the world is even and >= 4, vs one device; with
+    four cards or more also height-sharded serving over data=4 (the
+    height halos over NCCL)."""
     n = torch.cuda.device_count()
     if n < 2:
         pytest.skip("needs two or more cards")
     sizes = (n // 2, 2) if n >= 4 and n % 2 == 0 else (n, 1)
     _hold_mesh_ranks(cuda, sizes, [f"cuda:{r}" for r in range(n)], "nccl")
+    if n >= 4:
+        _hold_spatial_ranks(cuda, [f"cuda:{r}" for r in range(4)], "nccl")
+
+
+def test_spatial_two_ranks_gloo_on_one_card(cuda):
+    """Height-sharded serving, data=2, two ranks sharing the card over
+    gloo, vs one device."""
+    _hold_spatial_ranks(cuda, ["cuda:0"] * 2, "gloo")
+
+
+# a height whose bands carry through fc6 on four ranks (pool5 25 rows)
+SPATIAL_IMAGE = (1, 768, 64)
+
+
+def _hold_spatial_ranks(cuda, devices, backend):
+    """Height-sharded serving (`spatial=True`, the pristine gate, and the
+    int8 forward) with one band a rank of `devices` over `backend`, at 1/16
+    width on a (1, 768, 64) image, vs one device: flips < 1e-4; the int8
+    labels equal."""
+    from zeroshotsemanticsegmentation_tpu_torch.parallel import dryrun
+    ranks, batch, embed, sd = _mesh_setup(cuda)
+    image = np.random.RandomState(5).randn(*SPATIAL_IMAGE, 3).astype(
+        np.float32) * 40
+    flags = {"spatial": {}, "int8_spatial": {"int8": True}}
+    jobs = {name: ("serve", dict(unseen_classes=[1, 3], spatial=True,
+                                 images=image, **kw))
+            for name, kw in flags.items()}
+    sd_cpu = {k: v.cpu() for k, v in sd.items()}
+    out = dryrun.spawn(ranks.mesh_jobs, len(devices), (
+        (len(devices), 1), devices, sd_cpu, batch, embed, jobs, backend),
+        timeout_s=300)
+    for name, kw in flags.items():
+        want = ranks.serve_job(None, sd, batch, embed, unseen_classes=[1, 3],
+                               device=cuda, images=image, **kw)
+        for r in out:
+            assert r[name].shape == want.shape
+            assert (r[name] != want).mean() < 1e-4, name
+            if kw:
+                np.testing.assert_array_equal(r[name], want)
 
 
 def _hold_mesh_ranks(cuda, sizes, devices, backend):

@@ -156,7 +156,7 @@ def test_upscore_guard_matches_jax(rng):
         make_szn_predictor(port, state_dict_from_jax_params(trained), embed,
                            [2, 5], upscore_trained=False, device="cpu")
     assert upscore_trained_numeric({}) is False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="pass `mesh`"):
         make_szn_predictor(port, None, embed, [2, 5], spatial=True,
                            device="cpu")
 

@@ -7,7 +7,8 @@ tests/test_parallel.py runs it; the port side runs in gloo processes
 Inputs come from one numpy seed, weights cross over through
 `models.jax_weights`. Setup: `channel_scale` 1/16, a 64x64 bucket, B=4, 8
 classes (tests/test_parallel.py:21-31); dropout off for the comparisons
-with JAX. Bars: those of tests/test_parallel.py (loss rtol 1e-5,
+with JAX. Height-sharded serving at tests/test_serving.py's (1, 64, 96)
+image. Bars: those of tests/test_parallel.py (loss rtol 1e-5,
 parameters rtol 2e-3 / atol 1e-4, hist exact; the fused tail's near-tie
 allowance); with dropout on, the port's mesh step against its one-device
 step at the port's gradient bar (relative norm < 1e-4).
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from zeroshotsemanticsegmentation_tpu.models import FCN8s as JFCN8s
 from zeroshotsemanticsegmentation_tpu.models import FCN32s as JFCN32s
 from zeroshotsemanticsegmentation_tpu.models import ref_import as j_import
 from zeroshotsemanticsegmentation_tpu.ops.metrics import unseen_mask_vector
@@ -29,13 +31,15 @@ from zeroshotsemanticsegmentation_tpu.parallel import (
     make_mesh as j_make_mesh, make_multislice_mesh as j_make_multislice,
     shard_batch as j_shard_batch,
     shard_params as j_shard_params)
+from zeroshotsemanticsegmentation_tpu.serving import (
+    make_szn_predictor as j_predictor)
 from zeroshotsemanticsegmentation_tpu.train import (
     make_fcn_optimizer as j_optimizer)
 from zeroshotsemanticsegmentation_tpu.train.state import (
     TrainState as JTrainState)
 from zeroshotsemanticsegmentation_tpu.train.steps import (
     make_fcn_train_step as j_train_step, make_szn_eval_step as j_szn_eval)
-from zeroshotsemanticsegmentation_tpu_torch.models import FCN32s
+from zeroshotsemanticsegmentation_tpu_torch.models import FCN8s, FCN32s
 from zeroshotsemanticsegmentation_tpu_torch.models.jax_weights import (
     state_dict_from_jax_params)
 from zeroshotsemanticsegmentation_tpu_torch.parallel import dryrun
@@ -54,6 +58,7 @@ B = 4
 UNSEEN = [1, 3]
 LAYOUTS = {"4x2": (("data", "model"), (4, 2)),
            "2x2x2": (("slice", "data", "model"), (2, 2, 2))}
+SPATIAL_HW = (64, 96)  # tests/test_serving.py:226
 
 
 def _jax_mesh(sizes, devices=None):
@@ -108,11 +113,35 @@ def _uv():
 
 
 @pytest.fixture(scope="module")
-def mesh42(setup):
+def spatial_setup():
+    """The height-sharded image (tests/test_serving.py's, randn x 40) and
+    a JAX FCN8s tree with non-zero biases and skip heads."""
+    rng = np.random.RandomState(4242)
+    image = rng.randn(1, *SPATIAL_HW, 3).astype(np.float32) * 40
+    jm8 = JFCN8s(num_classes=C, channel_scale=1 / 16, dropout_rate=0.0)
+    tree8 = jax.tree.map(np.asarray, jm8.init(
+        jax.random.PRNGKey(1), jnp.zeros((1, *SPATIAL_HW, 3)),
+        mode="both")["params"])
+    for name, leaves in tree8.items():
+        leaves["bias"] = rng.randn(*leaves["bias"].shape).astype(
+            np.float32) * 0.05
+        if name.startswith("score_pool"):
+            leaves["kernel"] = rng.randn(*leaves["kernel"].shape).astype(
+                np.float32) * 0.1
+    return image, jm8, tree8
+
+
+@pytest.fixture(scope="module")
+def mesh42(setup, spatial_setup):
     """One 8-process run on the 4x2 mesh: the stage-1 step with the plain
     and the fused tail (two steps, and one), with dropout, the SZN eval
-    (unfused and fused) and mesh serving (both gate routes, FCN-8s)."""
+    (unfused and fused), mesh serving (both gate routes, FCN-8s), the
+    same three height-sharded, and int8 serving batch-sharded and
+    height-sharded."""
     _, tree, batch, embed = setup
+    image, _, tree8 = spatial_setup
+    serve = dict(unseen_classes=UNSEEN)
+    spatial = dict(serve, spatial=True, images=image)
     jobs = {
         "plain": ("train", dict(fused_tail=False)),
         "fused": ("train", dict(fused_tail=True)),
@@ -120,9 +149,15 @@ def mesh42(setup):
         "dropout": ("train", dict(fused_tail=True, dropout=0.5, steps=1)),
         "eval": ("eval", dict(unseen=_uv())),
         "eval_fused": ("eval", dict(unseen=_uv(), fused=True)),
-        **{"serve_" + route: ("serve", dict(unseen_classes=UNSEEN,
-                                            route=route))
+        **{"serve_" + route: ("serve", dict(serve, route=route))
            for route in ("pristine", "trained", "fcn8s")},
+        "spatial_pristine": ("serve", spatial),
+        "spatial_trained": ("serve", dict(spatial, route="trained")),
+        "spatial_fcn8s": ("serve", dict(
+            spatial, route="fcn8s",
+            sd8=state_dict_from_jax_params(tree8))),
+        "int8": ("serve", dict(serve, int8=True)),
+        "int8_spatial": ("serve", dict(spatial, int8=True)),
     }
     return _spawn_jobs((4, 2), tree, batch, embed, jobs)
 
@@ -374,16 +409,91 @@ def test_mesh_serving_matches_one_device(setup, mesh42, route):
         np.testing.assert_array_equal(r[key], mesh42[0][key])
 
 
-def test_spatial_and_int8_mesh_serving_raise(setup):
-    _, tree, _, embed = setup
+def _jax_labels(setup, spatial_setup, route, **kw):
+    """The JAX package's predictor on `make_mesh(4, 2)` (spatial: the
+    (1, 64, 96) image; else the batch), on the weights of the port's
+    job."""
+    jm, tree, batch, embed = setup
+    image, jm8, tree8 = spatial_setup
+    if route == "fcn8s":
+        jm, tree = jm8, tree8
+    if route == "trained":
+        up = ranks.trained_gate(state_dict_from_jax_params(tree))[
+            "seenmask_upscore.weight"].numpy()
+        tree = {**tree, "seenmask_upscore": {
+            "kernel": np.ascontiguousarray(up.transpose(2, 3, 0, 1))}}
+    predict = j_predictor(jm, jax.tree.map(jnp.asarray, tree), embed,
+                          UNSEEN, mesh=_jax_mesh((4, 2)), **kw)
+    return np.asarray(predict(image if kw.get("spatial")
+                              else batch["image"]))
+
+
+def _one_device(setup, spatial_setup, route, **kw):
+    _, tree, batch, embed = setup
+    image, _, tree8 = spatial_setup
+    return ranks.serve_job(None, state_dict_from_jax_params(tree), batch,
+                           embed, unseen_classes=UNSEEN, route=route,
+                           sd8=state_dict_from_jax_params(tree8), **kw)
+
+
+@pytest.mark.parametrize("route", ["pristine", "trained", "fcn8s"])
+def test_spatial_serving_matches_one_device_and_jax(setup, spatial_setup,
+                                                    mesh42, route):
+    """Height-sharded serving on the 4x2 mesh (height over 4 ranks, fc6 /
+    fc7 over 2) of tests/test_serving.py's (1, 64, 96) image: the global
+    labels on every rank vs the one-device port's and vs the JAX
+    package's spatial predictor on `make_mesh(4, 2)`, flips < 1e-4 (that
+    test's bar): FCN-32s with the pristine and a trained gate, and
+    FCN-8s."""
+    image, _, _ = spatial_setup
+    want = _one_device(setup, spatial_setup, route, images=image)
+    theirs = _jax_labels(setup, spatial_setup, route, spatial=True)
+    key = "spatial_" + route
+    for r in mesh42:
+        assert r[key].shape == (1, *SPATIAL_HW)
+        assert (r[key] != want).mean() < 1e-4
+        assert (r[key] != theirs).mean() < 1e-4
+        np.testing.assert_array_equal(r[key], mesh42[0][key])
+
+
+@pytest.mark.parametrize("job", ["int8", "int8_spatial"])
+def test_int8_mesh_serving_matches_one_device_and_jax(setup, spatial_setup,
+                                                      mesh42, job):
+    """int8 serving on the 4x2 mesh, batch-sharded (B=4) and
+    height-sharded ((1, 64, 96)): each scale is the one-device one (MAX
+    all-reduces; fc7's int32 products summed over 'model'), so the labels
+    equal the one-device port's int8 labels, and match the JAX int8
+    predictor on `make_mesh(4, 2)` (flips < 1e-4 each); against the
+    one-device bf16 labels under the JAX int8 bar (< 0.08)."""
+    image, _, _ = spatial_setup
+    spatial = job == "int8_spatial"
+    kw = {"images": image} if spatial else {}
+    want = _one_device(setup, spatial_setup, "pristine", int8=True, **kw)
+    bf16 = _one_device(setup, spatial_setup, "pristine",
+                       dtype=torch.bfloat16, **kw)
+    theirs = _jax_labels(setup, spatial_setup, "pristine", int8=True,
+                         spatial=spatial)
+    for r in mesh42:
+        assert r[job].shape == want.shape
+        np.testing.assert_array_equal(r[job], want)
+        assert (r[job] != theirs).mean() < 1e-4
+        assert (r[job] != bf16).mean() < 0.08
+
+
+def test_spatial_without_mesh_and_int8_fcn8s_raise(setup):
+    """`spatial=True` without a mesh raises ValueError (the JAX package
+    ignores the flag there), as int8 with FCN-8s does, on a mesh too."""
+    _, _, _, embed = setup
     model = FCN32s(C, channel_scale=1 / 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh"):
         make_szn_predictor(model, None, embed, UNSEEN, device="cpu",
                            spatial=True)
     layout = Mesh(("data", "model"), (1, 1), 0, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_szn_predictor(model, None, embed, UNSEEN, mesh=layout,
-                           int8=True)
+    fcn8s = FCN8s(C, channel_scale=1 / 16, device="cpu")
+    for mesh in (None, layout):
+        with pytest.raises(ValueError, match="int8"):
+            make_szn_predictor(fcn8s, None, embed, UNSEEN, device="cpu",
+                               mesh=mesh, int8=True)
 
 
 # ---- the experiment, the dry run --------------------------------------------

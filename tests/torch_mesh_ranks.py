@@ -78,26 +78,36 @@ def eval_job(mesh, sd, batch, embed, *, unseen, fused=False, device="cpu"):
 
 
 def serve_job(mesh, sd, batch, embed, *, unseen_classes, device="cpu",
-              route="pristine"):
-    """The predictor's labels for the batch's images (the global batch on
-    every rank). `route`: "pristine" (FCN-32s, the fused gate), "trained"
-    (FCN-32s with a seeded perturbation of its seenmask upscore: K1 twice
-    and the ConvTranspose) or "fcn8s" (seeded FCN-8s weights, the unfused
-    route)."""
+              route="pristine", spatial=False, int8=False, images=None,
+              sd8=None, dtype=torch.float32):
+    """The predictor's labels for `images` (default the batch's; the
+    global batch on every rank). `route`: "pristine" (FCN-32s, the fused
+    gate), "trained" (FCN-32s with a seeded perturbation of its seenmask
+    upscore: K1 twice and the ConvTranspose) or "fcn8s" (FCN-8s weights
+    `sd8`, default seeded ones: the unfused route). `spatial` splits the
+    height over 'data'; `int8` takes the int8 forward."""
     if route == "fcn8s":
         model = FCN8s(embed.shape[1], channel_scale=SCALE, device=device,
+                      dtype=dtype,
                       generator=torch.Generator().manual_seed(3))
-        sd = None
+        sd = sd8
     else:
-        model = FCN32s(embed.shape[1], channel_scale=SCALE, device=device)
+        model = FCN32s(embed.shape[1], channel_scale=SCALE, device=device,
+                       dtype=dtype)
     if route == "trained":
-        up = sd["seenmask_upscore.weight"]
-        sd = {**sd, "seenmask_upscore.weight": up + 0.05 * torch.randn(
-            up.shape, generator=torch.Generator().manual_seed(7)).to(
-                up.device)}
+        sd = trained_gate(sd)
     predict = make_szn_predictor(model, sd, embed, unseen_classes,
-                                 device=device, mesh=mesh)
-    return predict(batch["image"]).cpu().numpy()
+                                 device=device, mesh=mesh, spatial=spatial,
+                                 int8=int8)
+    return predict(batch["image"] if images is None else images
+                   ).cpu().numpy()
+
+
+def trained_gate(sd):
+    """`sd` with a seeded perturbation of its seenmask upscore."""
+    up = sd["seenmask_upscore.weight"]
+    return {**sd, "seenmask_upscore.weight": up + 0.05 * torch.randn(
+        up.shape, generator=torch.Generator().manual_seed(7)).to(up.device)}
 
 
 def reduce_job(mesh, sd, batch, embed, *, in_place_numel, device="cpu"):

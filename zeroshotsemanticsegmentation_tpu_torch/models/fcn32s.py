@@ -162,16 +162,25 @@ class VGGTrunk(nn.Module):
         conv = getattr(self, name)
         return conv.weight, conv.bias
 
-    def _blocks(self, x: torch.Tensor) -> dict:
+    def _blocks(self, x: torch.Tensor, bands=None) -> dict:
         """VGG blocks 1-5 on the (B, H, W, 3) image -> {block index: NCHW
         pool output} for every block it materialises: the last block of
         the support-pruned run (at most `PRUNED_DEPTH` deep) and each block
-        after it."""
+        after it. With `bands` (`parallel.spatial.Bands`) each is this
+        rank's band of rows, or the whole array from the plan's `depth`
+        on."""
         in_h, in_w = x.shape[1], x.shape[2]
         pools = {}
         start = 0
         h = None
-        if self.prune_pad and prunable(in_h, in_w):
+        if bands is not None:
+            nb = bands.plan.pruned
+            h = bands.settle(run_pruned_blocks(
+                block_weights(self._weight_bias, nb), x, _PAD_CONV1,
+                self.dtype, self.fused_block1, band=bands), nb, dim=2)
+            start = nb
+            pools[nb - 1] = h
+        elif self.prune_pad and prunable(in_h, in_w):
             for nb in range(self.PRUNED_DEPTH, 2, -1):
                 if plan_blocks(in_h, in_w, _PAD_CONV1, nb):
                     h = run_pruned_blocks(
@@ -184,10 +193,17 @@ class VGGTrunk(nn.Module):
             h = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
                 memory_format=torch.channels_last)
         for bi in range(start, len(_VGG_BLOCKS)):
+            on_bands = bands is not None and bands.conv_on_bands(bi)
             for ci, (name, _) in enumerate(_VGG_BLOCKS[bi]):
+                if on_bands:  # rows from the neighbours, zero columns
+                    h = torch.relu(self._conv(name, bands.rows3x3(h, 2),
+                                              (0, 1)))
+                    continue
                 pad = _PAD_CONV1 if (bi == 0 and ci == 0) else 1
                 h = torch.relu(self._conv(name, h, pad))
             h = F.max_pool2d(h, 2, 2, ceil_mode=True)
+            if bands is not None:
+                h = bands.settle(h, bi + 1, dim=2)
             pools[bi] = h
         return pools
 
@@ -222,12 +238,21 @@ class VGGTrunk(nn.Module):
         return torch.where(mask, h / keep, torch.zeros_like(h))
 
     def _trunk(self, x: torch.Tensor, train: bool,
-               generator: torch.Generator | None, frozen: bool = False):
+               generator: torch.Generator | None, frozen: bool = False,
+               bands=None):
         """Blocks 1-5, fc6 and fc7 with their dropout -> (NCHW fc7 output,
-        the pools of `_blocks`); `frozen` runs it without autograd."""
+        the pools of `_blocks`); `frozen` runs it without autograd. With
+        `bands` (serving only) the output is this rank's band when fc6 runs
+        on bands, else whole."""
+        if bands is not None and train:
+            raise ValueError("the height-sharded forward serves; it does "
+                             "not train")
         with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
-            pools = self._blocks(x)
-            h = self._dropout(torch.relu(self._fc("fc6", pools[4])), train,
+            pools = self._blocks(x, bands)
+            h = pools[4]
+            if bands is not None and bands.kept(5):
+                h = bands.fc6_input(h, dim=2)
+            h = self._dropout(torch.relu(self._fc("fc6", h)), train,
                               generator, split_channels=True)
             h = self._dropout(torch.relu(self._fc("fc7", h)), train,
                               generator)
@@ -262,16 +287,21 @@ class FCN32s(VGGTrunk):
     def forward(self, x: torch.Tensor, *, mode: str = "both",
                 train: bool = False,
                 generator: torch.Generator | None = None,
-                frozen_trunk: bool = False):
+                frozen_trunk: bool = False, bands=None):
         """mode in {fcn, seenmask, both, raw}; 'raw' returns the 1/32-res
         heads (B, h, w, C) and (B, h, w, 2) for the fused serving kernel.
         The upsampled heads are fp32 (B, H, W, C). `train` turns on the
         channel dropout, drawn from `generator` (on the input's device).
-        `frozen_trunk` runs everything before the heads without autograd."""
+        `frozen_trunk` runs everything before the heads without autograd.
+        `bands` (`parallel.spatial.Bands`, mode 'raw' only): this rank
+        computes its rows and gets the whole raw heads."""
         if mode not in ("fcn", "seenmask", "both", "raw"):
             raise ValueError(f"unexpected forward mode: {mode!r}")
+        if bands is not None and mode != "raw":
+            raise ValueError("FCN32s: the height-sharded forward returns "
+                             "the raw heads (mode='raw')")
         in_h, in_w = x.shape[1], x.shape[2]
-        h, _ = self._trunk(x, train, generator, frozen_trunk)
+        h, _ = self._trunk(x, train, generator, frozen_trunk, bands)
         # only the heads the mode returns are computed
         f_small = s_small = None
         if mode != "seenmask":
@@ -279,6 +309,9 @@ class FCN32s(VGGTrunk):
         if mode != "fcn":
             s_small = self._fc("seenmask_score", h).permute(0, 2, 3, 1)
         if mode == "raw":
+            if bands is not None:
+                f_small = bands.whole(f_small, 6, dim=1)
+                s_small = bands.whole(s_small, 6, dim=1)
             return f_small, s_small
 
         def up(s):

@@ -83,33 +83,38 @@ class FCN8s(VGGTrunk):
     def forward(self, x: torch.Tensor, *, mode: str = "both",
                 train: bool = False,
                 generator: torch.Generator | None = None,
-                frozen_trunk: bool = False):
+                frozen_trunk: bool = False, bands=None):
         """mode in {fcn, seenmask, both}: fp32 (B, H, W, C) and/or
         (B, H, W, 2). `train`, `generator` and `frozen_trunk` as in
-        `FCN32s.forward`."""
+        `FCN32s.forward`. `bands` (`parallel.spatial.Bands`): this rank
+        computes its rows of the trunk, gathers the score maps at 1/32,
+        1/16 and 1/8 resolution and returns its rows of the output
+        (`bands.out_rows()`)."""
         if mode not in ("fcn", "seenmask", "both"):
             raise ValueError(f"unexpected forward mode: {mode!r}")
         in_h, in_w = x.shape[1], x.shape[2]
-        h, pools = self._trunk(x, train, generator, frozen_trunk)
+        h, pools = self._trunk(x, train, generator, frozen_trunk, bands)
+        rows = None if bands is None else bands.out_rows()
 
-        def head(name, t):
-            return self._fc(name, t).permute(0, 2, 3, 1)
+        def head(name, t, level):
+            t = self._fc(name, t).permute(0, 2, 3, 1)
+            return t if bands is None else bands.whole(t, level, dim=1)
 
         def fcn_head():
-            u2 = _up_full(head("score_fr", h), 2, 4)
-            p4 = head("score_pool4", pools[3]).to(torch.float32)
+            u2 = _up_full(head("score_fr", h, 6), 2, 4)
+            p4 = head("score_pool4", pools[3], 4).to(torch.float32)
             u4 = _up_full(u2 + _crop_to(p4, _CROP_POOL4, u2), 2, 4)
-            p3 = head("score_pool3", pools[2]).to(torch.float32)
+            p3 = head("score_pool3", pools[2], 3).to(torch.float32)
             return upsample_bilinear_cropped(
                 u4 + _crop_to(p3, _CROP_POOL3, u4), stride=8,
                 kernel_size=16, crop_offset=_CROP_FINAL, out_h=in_h,
-                out_w=in_w)
+                out_w=in_w, rows=rows)
 
         def seenmask_head():
             # the coarse x32 path of FCN-32s, with the fixed bilinear taps
             return upsample_bilinear_cropped(
-                head("seenmask_score", h), stride=32, kernel_size=64,
-                crop_offset=19, out_h=in_h, out_w=in_w)
+                head("seenmask_score", h, 6), stride=32, kernel_size=64,
+                crop_offset=19, out_h=in_h, out_w=in_w, rows=rows)
 
         if mode == "fcn":
             return fcn_head()

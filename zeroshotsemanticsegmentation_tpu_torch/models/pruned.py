@@ -74,29 +74,43 @@ def _padc(a: torch.Tensor, c: torch.Tensor, top: int, bottom: int,
     return a
 
 
-def _expand_dim(p: torch.Tensor, dim: int, out_len: int) -> torch.Tensor:
-    """Stretch `p` along `dim` from n to out_len by repeating the middle
-    element; exact when the frame is constant beyond the rim on both sides
-    of the middle."""
+def _expand_dim(p: torch.Tensor, dim: int, out_len: int, lo: int = 0,
+                hi: int | None = None) -> torch.Tensor:
+    """Positions [lo, hi) (default all) of `p` stretched along `dim` from n
+    to out_len by repeating the middle element; exact when the frame is
+    constant beyond the rim on both sides of the middle. Slices, an
+    expand and a concatenation, so its gradient is a deterministic sum."""
     n = p.shape[dim]
-    if out_len == n:
+    hi = out_len if hi is None else hi
+    if out_len == n and (lo, hi) == (0, n):
         return p
     if out_len < n:
         raise ValueError(f"frame of {n} cannot shrink to {out_len}")
     m = n // 2
-    mid = p.narrow(dim, m, 1)
-    shape = list(mid.shape)
-    shape[dim] = out_len - (n - 1)
-    return torch.cat([p.narrow(dim, 0, m), mid.expand(shape),
-                      p.narrow(dim, m + 1, n - m - 1)], dim=dim)
+    tail = out_len - (n - 1 - m)  # the first position past the middle run
+    parts = []
+    if min(hi, m) > lo:
+        parts.append(p.narrow(dim, lo, min(hi, m) - lo))
+    a, b = max(lo, m), min(hi, tail)
+    if b > a:
+        mid = p.narrow(dim, m, 1)
+        shape = list(mid.shape)
+        shape[dim] = b - a
+        parts.append(mid.expand(shape))
+    a = max(lo, tail)
+    if hi > a:
+        parts.append(p.narrow(dim, m + 1 + a - tail, hi - a))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
 
-def assemble_frame(probe: torch.Tensor, out_h: int,
-                   out_w: int) -> torch.Tensor:
-    """(C, ph, pw) pooled zero-input response -> (C, out_h, out_w) frame."""
+def assemble_frame(probe: torch.Tensor, out_h: int, out_w: int,
+                   rows: tuple | None = None) -> torch.Tensor:
+    """(C, ph, pw) pooled zero-input response -> (C, out_h, out_w) frame,
+    or its rows [lo, hi) alone with `rows`."""
     if min(probe.shape[1], probe.shape[2]) // 2 < _FRAME_RIM:
         raise ValueError(f"probe {tuple(probe.shape)} too small for the rim")
-    return _expand_dim(_expand_dim(probe, 1, out_h), 2, out_w)
+    lo, hi = (0, out_h) if rows is None else rows
+    return _expand_dim(_expand_dim(probe, 1, out_h, lo, hi), 2, out_w)
 
 
 def probe_side(full_side: int, num_blocks: int) -> int:
@@ -169,9 +183,34 @@ def _plain_stack(kbs, h: torch.Tensor, pad1: int, dtype) -> torch.Tensor:
     return h
 
 
+class _WholeBand:
+    """The one-device path as a single band: every level's rows, no
+    neighbours (`parallel.spatial.Bands` is a rank's band of several)."""
+    first = last = True
+
+    def __init__(self, heights):
+        self.heights = heights
+
+    def rows(self, level: int) -> tuple:
+        return 0, self.heights[level]
+
+    def halo(self, t, top, bottom, dim):
+        return None, None
+
+
+def _image_rows(x: torch.Tensor, lo: int, hi: int, dtype, left: int = 0,
+                right: int = 0) -> torch.Tensor:
+    """Rows [lo, hi) of the (B, H, W, 3) images in `dtype`, zeros outside
+    them, with `left` and `right` zero columns."""
+    h = x.shape[1]
+    rows = x[:, max(lo, 0):min(hi, h)].to(dtype)
+    return F.pad(rows, (0, 0, left, right, max(-lo, 0),
+                        max(hi - max(h, lo), 0)))
+
+
 def run_pruned_blocks(kbs, x: torch.Tensor, pad1: int, dtype,
                       fused_block1: bool = False,
-                      conv_relu=None) -> torch.Tensor:
+                      conv_relu=None, band=None) -> torch.Tensor:
     """Run the first len(kbs) VGG blocks of the pad-100 geometry on the
     receptive-field support only.
 
@@ -184,8 +223,14 @@ def run_pruned_blocks(kbs, x: torch.Tensor, pad1: int, dtype,
       `models.quantized`); the frame probe and the ring-constant chain stay
       in `dtype`, since the zero-input response must be exact. With a hook,
       block 1 never takes the fused kernel.
+    band: a `parallel.spatial.Bands`: compute this rank's rows only. Block
+      1 slices its rows (with their halo) from the whole image; every
+      later convolution takes one row from each neighbour, and only the
+      outermost bands take the ring pads and the alignment pads, which
+      follow the one-device geometry.
     Returns the full virtual pool{len(kbs)} array (B, C, h, w), equal to the
-    plain pad-100 path. Callers validate the geometry with `plan_blocks`.
+    plain pad-100 path (with `band`, its rows `band.rows(len(kbs))`).
+    Callers validate the geometry with `plan_blocks` (and `plan_bands`).
     """
     B, H, W, _ = x.shape
     num_blocks = len(kbs)
@@ -201,55 +246,81 @@ def run_pruned_blocks(kbs, x: torch.Tensor, pad1: int, dtype,
         dtype=dtype, device=dev), pad1, dtype)[0]
 
     c = torch.zeros((3,), dtype=dtype, device=dev)
-    # s0: coordinate of a[0, 0] on the current layer's full (virtual) grid
-    s0 = 0
+    # s0 and e: the data path's first and end row (and column: s0) on the
+    # current layer's full (virtual) grid, as one device holds it; t: the
+    # virtual row of a[0, 0] (s0 on one device)
     vh, vw = H + 2 * pad1 - 2, W + 2 * pad1 - 2
+    if band is None:
+        heights = [vh]
+        for _ in range(num_blocks):
+            heights.append(-(-heights[-1] // 2))
+        band = _WholeBand(heights)
     rim = 0
     start_bi = 0
     if fused_block1 and len(kbs[0]) == 2 and kbs[0][1][0].shape[0] == 64 \
             and pad1 >= 8:
         # block 1's frame rim is 0, so its support segment is plain VALID
-        # convs on a zero-padded input: a symmetric 5-px pad lands the
-        # conv1_2 output at [pad1-4, ...), +1 bottom/right keeps odd
-        # extents pool-even
+        # convs on a zero-padded input: K2's output row p is the pool1 row
+        # pad1/2 - 2 + p, and reads input rows 2p - 5 .. 2p; a 5-px column
+        # pad, +1 right keeps an odd width pool-even (its extra column,
+        # data-independent, is dropped)
         (k1, b1), (k2, b2) = kbs[0]
-        xp = F.pad(x.to(dtype), (0, 0, 5, 5 + W % 2, 5, 5 + H % 2))
+        s0 = (pad1 - 4) // 2
+        e = s0 + (H + 6) // 2
+        lo, hi = band.rows(1)
+        lo, hi = max(lo, s0), min(hi, e)
+        xp = _image_rows(x, 2 * (lo - s0) - 5, 2 * (hi - s0) - 1, dtype,
+                         5, 5 + W % 2)
         a = block1_fused.block1_op(xp, k1, b1, k2, b2, dtype)
-        # odd H/W: drop the extra pooled row/col the +1 pad computed (it is
-        # data-independent), keeping lockstep with plan_blocks
-        a = a[:, :a.shape[1] - H % 2, :a.shape[2] - W % 2, :]
-        a = a.permute(0, 3, 1, 2)
+        a = a[:, :, :a.shape[2] - W % 2, :].permute(0, 3, 1, 2)
         for k, b in kbs[0]:
             c = torch.relu(_zero_input_response(k, c).to(dtype) + b.to(dtype))
-        s0 = (pad1 - 4) // 2
+        t = lo
         vh, vw = -(-vh // 2), -(-vw // 2)
         rim = 1
         start_bi = 1
-    else:
-        a = x.to(dtype).permute(0, 3, 1, 2)
     for bi in range(start_bi, num_blocks):
         for ci, (k, b) in enumerate(kbs[bi]):
-            first = bi == 0 and ci == 0
+            if bi == 0 and ci == 0:
+                # conv1_1's data rows [pad1 - 2, H + pad1) read the image's
+                # rows v - pad1 .. v - pad1 + 2 (zeros past its edges)
+                s0, e = pad1 - 2, H + pad1
+                lo, hi = band.rows(0)
+                t, hi = max(lo, s0), min(hi, e)
+                a = _image_rows(x, t - pad1, hi - pad1 + 2, dtype, 2, 2)
+                a = conv_relu(a.permute(0, 3, 1, 2), k, b)
+                c = torch.relu(_zero_input_response(k, c).to(dtype)
+                               + b.to(dtype))
+                continue
             # ring-pad by 2 with the current constant: +1 halo for the VALID
-            # conv, +1 so the support (which grows by 1) is fully computed
-            if not first and not (
-                    s0 - 2 >= rim and s0 + a.shape[2] + 2 + rim <= vh
+            # conv, +1 so the support (which grows by 1) is fully computed;
+            # an inner band edge takes its neighbour's row instead
+            if not (s0 - 2 >= rim and e + 2 + rim <= vh
                     and s0 + a.shape[3] + 2 + rim <= vw):
                 raise AssertionError(("ring", bi, ci, s0, rim))
-            a = _padc(a, c, 2, 2, 2, 2)
+            above, below = band.halo(a, 1, 1, 2)
+            if above is not None or below is not None:
+                a = torch.cat([p for p in (above, a, below)
+                               if p is not None], dim=2)
+            a = _padc(a, c, 2 if band.first else 0, 2 if band.last else 0,
+                      2, 2)
             a = conv_relu(a, k, b)
-            s0 += (pad1 - 2) if first else -1
+            s0, e = s0 - 1, e + 1
+            t -= band.first
             c = torch.relu(_zero_input_response(k, c).to(dtype) + b.to(dtype))
-            if not first:
-                rim += 1
+            rim += 1
         if s0 % 2:
-            a = _padc(a, c, 1, 0, 1, 0)
+            a = _padc(a, c, int(band.first), 0, 1, 0)
             s0 -= 1
-        padb, padr = a.shape[2] % 2, a.shape[3] % 2
+            t -= band.first
+        padb, padr = (e % 2) * band.last, a.shape[3] % 2
         if padb or padr:
             a = _padc(a, c, 0, padb, 0, padr)
+            e += padb
+        if t % 2 or a.shape[2] % 2:
+            raise AssertionError(("band", bi, t, a.shape[2]))
         a = F.max_pool2d(a, 2, 2)
-        s0 //= 2
+        s0, e, t = s0 // 2, e // 2, t // 2
         vh, vw = -(-vh // 2), -(-vw // 2)
         rim = -(-rim // 2)
     if rim > _FRAME_RIM:
@@ -258,10 +329,11 @@ def run_pruned_blocks(kbs, x: torch.Tensor, pad1: int, dtype,
     # a hook may leave the data path in a narrower dtype than the ring and
     # frame chain (the int8 forward keeps bf16 activations): the frame
     # rounds to it
-    frame = assemble_frame(probe, vh, vw).to(a.dtype)
+    lo, hi = band.rows(num_blocks)
+    frame = assemble_frame(probe, vh, vw, (lo, hi)).to(a.dtype)
     # a fresh tensor, so the slice assignment below never writes into a
     # tensor autograd saved; gradients reach both the frame and `a`
     full = frame[None].expand(B, -1, -1, -1).clone(
         memory_format=torch.channels_last)
-    full[:, :, s0:s0 + a.shape[2], s0:s0 + a.shape[3]] = a
+    full[:, :, t - lo:t - lo + a.shape[2], s0:s0 + a.shape[3]] = a
     return full

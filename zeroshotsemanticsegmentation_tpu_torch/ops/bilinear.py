@@ -75,9 +75,11 @@ def upsample_matrix(in_len: int, stride: int, kernel_size: int,
 
 def upsample_bilinear_cropped(x: torch.Tensor, *, stride: int,
                               kernel_size: int, crop_offset: int,
-                              out_h: int, out_w: int) -> torch.Tensor:
+                              out_h: int, out_w: int,
+                              rows: tuple | None = None) -> torch.Tensor:
     """Fixed bilinear x-stride upsample + crop of a (B, h, w, C) map -> fp32
-    (B, out_h, out_w, C), as two interpolation-matrix products."""
+    (B, out_h, out_w, C), as two interpolation-matrix products; with `rows`
+    = (r0, r1) only output rows [r0, r1)."""
     x = x.to(torch.float32)
 
     def matrix(in_len: int, out_len: int) -> torch.Tensor:
@@ -86,18 +88,24 @@ def upsample_bilinear_cropped(x: torch.Tensor, *, stride: int,
                             lambda: upsample_matrix(*args).copy(), x.device)
 
     mh, mw = matrix(x.shape[1], out_h), matrix(x.shape[2], out_w)
+    if rows is not None:
+        mh = mh[rows[0]:rows[1]]
     y = torch.einsum("oh,bhwc->bowc", mh, x)
     return torch.einsum("pw,bowc->bopc", mw, y)
 
 
 def upscore_conv_transpose_cropped(x: torch.Tensor, weight: torch.Tensor, *,
                                    stride: int, crop_offset: int,
-                                   out_h: int, out_w: int) -> torch.Tensor:
+                                   out_h: int, out_w: int,
+                                   rows: tuple | None = None
+                                   ) -> torch.Tensor:
     """TRAINED-upscore upsample: ConvTranspose2d with `weight` (Cin, Cout,
     K, K), the torch layout, no bias, then the reference crop.
 
     x: (B, h, w, Cin) -> fp32 (B, out_h, out_w, Cout). Equal to
-    `upsample_bilinear_cropped` when `weight` is the bilinear init."""
+    `upsample_bilinear_cropped` when `weight` is the bilinear init. With
+    `rows` = (r0, r1) only output rows [r0, r1), from the input rows that
+    reach them."""
     kh, kw = weight.shape[2], weight.shape[3]
     full_h = (x.shape[1] - 1) * stride + kh
     full_w = (x.shape[2] - 1) * stride + kw
@@ -105,8 +113,15 @@ def upscore_conv_transpose_cropped(x: torch.Tensor, weight: torch.Tensor, *,
         raise ValueError(
             f"crop [{crop_offset}:+{out_h}x{out_w}] exceeds transposed-conv "
             f"output {full_h}x{full_w}")
+    top, n_rows = crop_offset, out_h
+    if rows is not None:
+        # output row o takes input rows i with 0 <= o - stride * i < kh
+        r0, r1 = rows
+        i0 = max(0, -(-(crop_offset + r0 - kh + 1) // stride))
+        i1 = min(x.shape[1], (crop_offset + r1 - 1) // stride + 1)
+        x = x[:, i0:i1]
+        top, n_rows = crop_offset + r0 - stride * i0, r1 - r0
     y = F.conv_transpose2d(x.to(torch.float32).permute(0, 3, 1, 2),
                            weight.to(torch.float32), stride=stride)
-    y = y[:, :, crop_offset:crop_offset + out_h,
-          crop_offset:crop_offset + out_w]
+    y = y[:, :, top:top + n_rows, crop_offset:crop_offset + out_w]
     return y.permute(0, 2, 3, 1)

@@ -97,12 +97,17 @@ def _tap_table(in_len: int, out_len: int):
     return i0.astype(np.int32), w
 
 
-def _taps(in_len: int, out_len: int, device):
-    """`_tap_table` on `device`, copied there once."""
+def _taps(in_len: int, out_len: int, device, rows: tuple | None = None):
+    """`_tap_table` on `device`, copied there once; with `rows` = (r0, r1)
+    the entries of output coordinates [r0, r1) alone (weights still (2,
+    r1 - r0), the kernel's layout)."""
+    r0, r1 = (0, out_len) if rows is None else rows
     i0, w = _tap_table(in_len, out_len)
-    return (device_const(("szn_taps_i0", in_len, out_len), lambda: i0,
-                         device),
-            device_const(("szn_taps_w", in_len, out_len), lambda: w, device))
+    key = (in_len, out_len, r0, r1)
+    return (device_const(("szn_taps_i0", *key),
+                         lambda: np.ascontiguousarray(i0[r0:r1]), device),
+            device_const(("szn_taps_w", *key),
+                         lambda: np.ascontiguousarray(w[:, r0:r1]), device))
 
 
 def k1_plan(batch: int, h32: int, w32: int, kp1: int, out_h: int,
@@ -207,17 +212,26 @@ def _on(a, dtype, device) -> torch.Tensor:
                         a.copy, device)
 
 
+def _rows(out_h: int, rows) -> tuple:
+    r0, r1 = (0, out_h) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= r0 < r1 <= out_h:
+        raise ValueError(f"szn_labels: rows {rows} outside [0, {out_h})")
+    return r0, r1
+
+
 def szn_labels_plain(aug: torch.Tensor, seen, unseen, fill, out_h: int,
-                     out_w: int) -> torch.Tensor:
+                     out_w: int, rows: tuple | None = None) -> torch.Tensor:
     """Plain version of the kernel: interpolation-matrix upsample of every
     row of `aug` (B, h32, w32, K+1) to (B, out_h, out_w, K+1) in fp32,
     masked first-max argmaxes (`seen`, `unseen`, `fill` over K+1 rows,
-    host data or tensors), gate select -> (B, out_h, out_w) int32."""
+    host data or tensors), gate select -> (B, out_h, out_w) int32. With
+    `rows` = (r0, r1): output rows [r0, r1) alone, (B, r1 - r0, out_w)."""
     _, h32, w32, _ = aug.shape
+    r0, r1 = _rows(out_h, rows)
     dev = aug.device
     seen, unseen = _on(seen, torch.int32, dev), _on(unseen, torch.int32, dev)
     fill = _on(fill, torch.float32, dev)
-    up = torch.einsum("oh,bhwk->bowk", _matrix(h32, out_h, dev), aug)
+    up = torch.einsum("oh,bhwk->bowk", _matrix(h32, out_h, dev)[r0:r1], aug)
     up = torch.einsum("pw,bowk->bopk", _matrix(w32, out_w, dev), up)
     seen_arg = torch.argmax(torch.where(seen != 0, up, fill), dim=-1)
     unseen_arg = torch.argmax(torch.where(unseen != 0, up, fill), dim=-1)
@@ -226,15 +240,18 @@ def szn_labels_plain(aug: torch.Tensor, seen, unseen, fill, out_h: int,
 
 
 def szn_labels(aug: torch.Tensor, seen, unseen, fill, out_h: int,
-               out_w: int) -> torch.Tensor:
+               out_w: int, rows: tuple | None = None) -> torch.Tensor:
     """Kernel wrapper: launches `csrc/szn_fused.cu` on a CUDA tensor; a CPU
     tensor takes `szn_labels_plain`. `seen`, `unseen` and `fill` are host
     data (numpy or CPU tensors, as `_partition` returns them): the wrapper
     checks their form on the host (`kernel_partition`) and raises on any
     other form or on a CUDA tensor. The plan comes from `k1_plan`; the
-    kernel refuses a plan past the card's limits (the check raises)."""
+    kernel refuses a plan past the card's limits (the check raises).
+    `rows` = (r0, r1): output rows [r0, r1) alone (a band of a
+    height-sharded image): the kernel reads rows only through the row tap
+    tables and `out_h`, so it is given those tables' rows and r1 - r0."""
     if not aug.is_cuda:
-        return szn_labels_plain(aug, seen, unseen, fill, out_h, out_w)
+        return szn_labels_plain(aug, seen, unseen, fill, out_h, out_w, rows)
     if aug.dim() != 4 or aug.dtype != torch.float32 \
             or not aug.is_contiguous():
         raise ValueError("szn_labels: aug must be a contiguous float32 "
@@ -247,8 +264,10 @@ def szn_labels(aug: torch.Tensor, seen, unseen, fill, out_h: int,
                          f"rows, aug K+1 = {kp1}")
     words, n_seen, fx_seen, fx_unseen = kernel_partition(seen, unseen, fill)
     dev = aug.device
-    row_i0, row_w = _taps(h32, out_h, dev)
+    r0, r1 = _rows(out_h, rows)
+    row_i0, row_w = _taps(h32, out_h, dev, (r0, r1))
     col_i0, col_w = _taps(w32, out_w, dev)
+    out_h = r1 - r0
     out = torch.empty((b, out_h, out_w), dtype=torch.int32, device=dev)
     if out.numel() == 0:
         return out
@@ -301,12 +320,13 @@ def _partition(cls_seen, cls_unseen):
 
 def infer_labels_szn_fused(score_small: torch.Tensor,
                            seenmask_small: torch.Tensor, embeddings,
-                           unseen_class_mask, out_hw: tuple[int, int]
-                           ) -> torch.Tensor:
+                           unseen_class_mask, out_hw: tuple[int, int],
+                           rows: tuple | None = None) -> torch.Tensor:
     """SZN labels from the raw (1/32-res) heads (model mode='raw').
 
     score_small (B, h32, w32, C), seenmask_small (B, h32, w32, 2) ->
-    (B, out_h, out_w) int32. Equivalent to upsampling both heads and running
+    (B, out_h, out_w) int32, or output rows [r0, r1) alone with `rows`.
+    Equivalent to upsampling both heads and running
     `ops.nne.infer_labels_szn`."""
     dev = score_small.device
     e = _embed_scaled(embeddings, dev)
@@ -317,7 +337,7 @@ def infer_labels_szn_fused(score_small: torch.Tensor,
     seen, unseen, fill = _partition(~uv, uv)
     gate = (seenmask_small[..., 0] - seenmask_small[..., 1]).to(torch.float32)
     return szn_labels(_aug(score_small, gate, e), seen, unseen, fill,
-                      int(out_hw[0]), int(out_hw[1]))
+                      int(out_hw[0]), int(out_hw[1]), rows)
 
 
 def infer_labels_nne_fused(score_small: torch.Tensor, embeddings,

@@ -22,9 +22,16 @@ axes ('data', 'model') or ('slice', 'data', 'model').
   replicated; its gradient is equal on every model rank because fc7's
   output and fc6's input gradient are already reduced there.
 
+* **Height** over 'data' (`parallel.spatial`: one image split into bands
+  of rows): `exchange_halo` (each rank's edge rows to its neighbours),
+  `gather_height` (every band's rows, in order) and `all_reduce_max` (the
+  int8 forward's scales), all through `Mesh.all_reduce`. On a multislice
+  mesh the 'slice' ranks repeat the same bands.
+
 Collectives are the ones both backends offer on CUDA tensors, all_reduce
 and broadcast (gloo has no all_gather for them): a gather is an all-reduce
-of a zero-filled tensor in which each rank wrote its own slot.
+of a zero-filled tensor in which each rank wrote its own slot (a sum with
+zeros is exact in every dtype).
 
 `init_distributed` starts the default process group with the backend the
 caller names (nccl on cards, gloo on the CPU or for several ranks sharing
@@ -53,6 +60,7 @@ SLICE_AXIS = "slice"  # the outer data axis of a multi-slice mesh
 TP_RULES = {"fc6.weight": 0, "fc6.bias": 0, "fc7.weight": 1}
 
 _timeout = datetime.timedelta(seconds=300)
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
 def init_distributed(backend: str, init_method: str, rank: int,
@@ -100,6 +108,18 @@ class Mesh:
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, coords={self.coords}, "
                 f"device={self.device})")
+
+    def all_reduce(self, t: torch.Tensor, axes=(DATA_AXIS,),
+                   op: str = "sum") -> None:
+        """All-reduce `t` in place ("sum" or "max") over the group of each
+        axis of `axes` in turn: 'data' (the data group, 'slice' included)
+        or 'model'."""
+        groups = {DATA_AXIS: self.data_group, MODEL_AXIS: self.model_group}
+        for axis in axes:
+            if groups[axis] is None:
+                raise RuntimeError("this mesh is a layout without process "
+                                   "groups")
+            dist.all_reduce(t, op=_REDUCE_OPS[op], group=groups[axis])
 
 
 def rank_grid(sizes) -> np.ndarray:
@@ -300,6 +320,73 @@ def gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     full[mesh.data_rank * b:(mesh.data_rank + 1) * b] = t
     dist.all_reduce(full, group=mesh.data_group)
     return full
+
+
+# ---- height collectives (`parallel.spatial`) --------------------------------
+
+def exchange_halo(a: torch.Tensor, top: int, bottom: int, mesh,
+                  dim: int = 2):
+    """(the last `top` rows of the band above, the first `bottom` rows of
+    the band below) along `dim`, None where there is no such neighbour or
+    no rows are asked for. Every rank of the data group calls it with the
+    same `top`, `bottom` and the same extent in every other dimension. One
+    all-reduce of a zero-filled (data group size, ..., top + bottom, ...)
+    buffer in which each rank wrote the edge rows its neighbours take."""
+    n, d = mesh.shape[DATA_AXIS], mesh.coords[DATA_AXIS]
+    if n == 1 or top + bottom == 0:
+        return None, None
+    rows = a.shape[dim]
+    if (d > 0 and rows < bottom) or (d < n - 1 and rows < top):
+        raise ValueError(f"exchange_halo: a band of {rows} rows cannot give "
+                         f"{bottom} rows up and {top} down")
+    shape = list(a.shape)
+    shape[dim] = top + bottom
+    buf = torch.zeros((mesh.data_size, *shape), dtype=a.dtype,
+                      device=a.device)
+    me = mesh.data_rank  # neighbours are me - 1 and me + 1 (same slice)
+    if d > 0 and bottom:
+        buf[me].narrow(dim, 0, bottom).copy_(a.narrow(dim, 0, bottom))
+    if d < n - 1 and top:
+        buf[me].narrow(dim, bottom, top).copy_(a.narrow(dim, rows - top,
+                                                        top))
+    mesh.all_reduce(buf)
+    above = (buf[me - 1].narrow(dim, bottom, top) if d > 0 and top
+             else None)
+    below = (buf[me + 1].narrow(dim, 0, bottom) if d < n - 1 and bottom
+             else None)
+    return above, below
+
+
+def gather_height(t: torch.Tensor, mesh, bounds, dim: int = 1
+                  ) -> torch.Tensor:
+    """The whole tensor along `dim` from each band's rows, on every rank:
+    band r holds rows [bounds[r], bounds[r + 1]). One all-reduce over the
+    data group of a zero-filled tensor in which the ranks of slice 0 wrote
+    their rows (the other slices hold the same bands)."""
+    n, d = mesh.shape[DATA_AXIS], mesh.coords[DATA_AXIS]
+    if len(bounds) != n + 1 or t.shape[dim] != bounds[d + 1] - bounds[d]:
+        raise ValueError(f"gather_height: {t.shape[dim]} rows on band {d} "
+                         f"of {bounds}")
+    if n == 1:
+        return t
+    shape = list(t.shape)
+    shape[dim] = bounds[-1]
+    full = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    if mesh.coords.get(SLICE_AXIS, 0) == 0:
+        full.narrow(dim, bounds[d], bounds[d + 1] - bounds[d]).copy_(t)
+    mesh.all_reduce(full)
+    return full
+
+
+def all_reduce_max(t: torch.Tensor, mesh, over=(DATA_AXIS,)
+                   ) -> torch.Tensor:
+    """The elementwise maximum of `t` over the mesh axes `over` ('data',
+    'model'), on every rank (a new tensor; no mesh: `t`)."""
+    if mesh is None:
+        return t
+    out = t.detach().clone()
+    mesh.all_reduce(out, over, "max")
+    return out
 
 
 # ---- collectives of the steps ----------------------------------------------

@@ -12,7 +12,11 @@ int8 forward of `models.quantized`. It runs under `torch.inference_mode()`.
 `mesh=` (`parallel.mesh`) serves a batch sharded over the data axes with
 fc6 / fc7 split over 'model': every rank is given the same global batch,
 runs its rows through the same route and kernels, and gets the global
-labels back (an all-reduce over the data group).
+labels back (an all-reduce over the data group). `spatial=True` splits
+each image's height over 'data' instead (`parallel.spatial`): every rank
+runs its band of rows through the trunk, the 1/32 heads (or FCN-8s's
+score maps) are gathered, each rank labels its rows of the output through
+the same kernels, and the labels are gathered.
 """
 
 from __future__ import annotations
@@ -35,7 +39,10 @@ from zeroshotsemanticsegmentation_tpu_torch.ops.nne import infer_labels_szn
 from zeroshotsemanticsegmentation_tpu_torch.ops.szn_fused import (
     infer_labels_szn_fused)
 from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
-    gather_rows, shard_batch, shard_model, shard_params)
+    DATA_AXIS, gather_height, gather_rows, shard_batch, shard_model,
+    shard_params)
+from zeroshotsemanticsegmentation_tpu_torch.parallel.spatial import (
+    Bands, plan_bands)
 
 _UPSCORE_KEY = "seenmask_upscore.weight"
 
@@ -75,31 +82,32 @@ def make_szn_predictor(model: torch.nn.Module,
 
     `int8=True` takes the int8 forward (`models.quantized`: opt-in and
     approximate; check its label flips against the bf16 route on your data
-    first); FCN32s only. An architecture without raw heads serves through
-    the unfused full-resolution route.
+    first); FCN32s only, on one device or a mesh (its scales are the
+    one-device ones there). An architecture without raw heads serves
+    through the unfused full-resolution route.
 
     `mesh`: the model is sharded over it (`parallel.shard_model`) unless
     it already is, `params` is a full state dict, the device is the
     mesh's, and every rank calls `predict` with the same global batch (its
-    size divisible by the data axes). Height-sharded (`spatial`) serving
-    and int8 on a mesh are not ported (ROADMAP.md).
+    size divisible by the data axes). `spatial=True` (a mesh and the
+    support-pruned geometry, `prune_pad`) splits each image's height over
+    'data' instead of the batch (`parallel.spatial.plan_bands`, which
+    raises for a geometry it cannot split); the labels are those of one
+    device, whole on every rank. Without a mesh `spatial=True` raises
+    ValueError (the JAX package ignores the flag there).
     """
-    if spatial:
-        raise NotImplementedError(
-            "make_szn_predictor: spatial (height-sharded) serving is not "
-            "ported: every convolution of the pad-100 geometry needs a "
-            "halo exchange between ranks; see ROADMAP.md queue 1")
-    if int8 and mesh is not None:
-        raise NotImplementedError(
-            "make_szn_predictor: int8 serving on a mesh is not ported: each "
-            "quantized layer's activation scale is a max over the whole "
-            "batch and all channels, a MAX all-reduce per layer; see "
-            "ROADMAP.md queue 1")
+    if spatial and mesh is None:
+        raise ValueError("make_szn_predictor: spatial=True shards the "
+                         "height over a mesh's 'data' axis; pass `mesh`")
     raw_heads = getattr(model, "RAW_HEADS", False)
     if int8 and not raw_heads:
         raise ValueError(
             "int8 serving implements only the raw-heads (FCN32s) forward "
             "(models/quantized.py); it is unavailable for this architecture")
+    if spatial and not getattr(model, "prune_pad", False):
+        raise ValueError("make_szn_predictor: spatial serving splits the "
+                         "support-pruned geometry; build the model with "
+                         "prune_pad=True")
     dev = resolve_device(device) if mesh is None else mesh.device
     model = model.to(dev).eval()
     if mesh is not None and getattr(model, "mesh", None) is None:
@@ -131,36 +139,39 @@ def make_szn_predictor(model: torch.nn.Module,
     upscore_w = state.get(_UPSCORE_KEY)
 
     @torch.inference_mode()
-    def predict(images) -> torch.Tensor:
+    def predict(images, bands=None) -> torch.Tensor:
+        """Labels of `images`; with `bands` this rank's rows of them."""
         images = prepare_images(torch.as_tensor(images, device=dev))
+        rows = None if bands is None else bands.out_rows()
         if not raw_heads:
-            f_full, s_full = model(images, mode="both")
+            f_full, s_full = model(images, mode="both", bands=bands)
             return infer_labels_szn(f_full.to(torch.float32),
                                     s_full.to(torch.float32), embed,
                                     unseen_vec_dev)
         if int8:
-            f_raw, s_raw = quantized_raw_forward(state, images)
+            f_raw, s_raw = quantized_raw_forward(state, images, mesh=mesh,
+                                                 bands=bands)
         else:
-            f_raw, s_raw = model(images, mode="raw")
+            f_raw, s_raw = model(images, mode="raw", bands=bands)
         out_hw = (images.shape[1], images.shape[2])
         if not upscore_trained:
             return infer_labels_szn_fused(f_raw, s_raw, embed, unseen_vec,
-                                          out_hw)
+                                          out_hw, rows)
         # trained upscore: the exact gate at full resolution through the
         # model's own ConvTranspose; the classes still take the fused kernel
         # (an always-seen / always-unseen gate restricts its partition)
         gate = upscore_conv_transpose_cropped(
             s_raw, upscore_w, stride=32, crop_offset=19,
-            out_h=out_hw[0], out_w=out_hw[1])
+            out_h=out_hw[0], out_w=out_hw[1], rows=rows)
         pixel_unseen = torch.argmax(gate, dim=-1) == 0
         always_seen = torch.zeros_like(s_raw)
         always_seen[..., 1] = 1.0
         always_unseen = torch.zeros_like(s_raw)
         always_unseen[..., 0] = 1.0
         seen_lbl = infer_labels_szn_fused(f_raw, always_seen, embed,
-                                          unseen_vec, out_hw)
+                                          unseen_vec, out_hw, rows)
         unseen_lbl = infer_labels_szn_fused(f_raw, always_unseen, embed,
-                                            unseen_vec, out_hw)
+                                            unseen_vec, out_hw, rows)
         return torch.where(pixel_unseen, unseen_lbl, seen_lbl)
 
     if mesh is None:
@@ -171,4 +182,15 @@ def make_szn_predictor(model: torch.nn.Module,
         rows = shard_batch({"image": torch.as_tensor(images)}, mesh)["image"]
         return gather_rows(predict(rows), mesh)
 
-    return predict_sharded
+    if not spatial:
+        return predict_sharded
+
+    @torch.inference_mode()
+    def predict_spatial(images) -> torch.Tensor:
+        images = torch.as_tensor(images)
+        plan = plan_bands(images.shape[1], images.shape[2],
+                          mesh.shape[DATA_AXIS], model.PRUNED_DEPTH)
+        return gather_height(predict(images, Bands(plan, mesh)), mesh,
+                             plan.out_rows, dim=1)
+
+    return predict_spatial
