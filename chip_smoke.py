@@ -179,7 +179,25 @@ Phases, each of which passes or ends the script with a non-zero exit:
    image, bf16, over the two ranks: each rank's peak memory below 0.75x
    the one-device run's.
    The kernels line carries K1's and K2's launches on these paths, by
-   rank, and their band checks.
+   rank, and their band checks;
+24. the native decoder (`phase_decoder`; host C++, not a kernel): (a) built
+   from zeroshotsemanticsegmentation_tpu_torch/csrc/zss_loader.cc with g++
+   (libjpeg where the compiler finds jpeglib.h, else nvJPEG), the
+   toolchain printed; (b) the committed JPEG fixtures
+   (scripts/torch_make_decode_fixtures.py) within DECODE_MEAN_ERR /
+   DECODE_MAX_ERR of their seeded sources and DECODE_VS_LIBJPEG levels of
+   libjpeg's pixels (bit-equal to the recorded SHA-256 printed), PNG
+   labels from a stdlib writer (8-bit and 1/2/4-bit gray and palette,
+   Adam7) and `.mat` labels (scipy, compressed and not) exact, corrupt,
+   truncated and oversized files to their error codes; (c) a VOC/SBD
+   tree of links to the fixtures in the temporary directory, 960 train and
+   96 val ids, and the native presence scan of preset 14's train_seen;
+   (d) the feed alone at 1, 2, 4 and 8 threads; (e) FCNTrainer at B=24 over
+   the tree, as phase 20's loop, beside its bare step and phase 20's
+   synthetic loop, every batch natively decoded; (f) `-c 14 -ve 1 -se 0`
+   through the train CLI on the tree at full width, its log naming the
+   native decoder. (c)-(f) run with `import PIL` failing. The kernels line
+   adds the decoder's batches.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -1084,11 +1102,9 @@ def phase_train_cli(dev, embed, bare_img_s, tmp, log, require) -> dict:
     from zeroshotsemanticsegmentation_tpu_torch.data import (
         BatchLoader, SyntheticDataset)
     from zeroshotsemanticsegmentation_tpu_torch.models.fcn32s import FCN32s
-    from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
     from zeroshotsemanticsegmentation_tpu_torch.train import (
         FCNTrainer, make_fcn_optimizer)
     from zeroshotsemanticsegmentation_tpu_torch.train import checkpoint as ck
-    from zeroshotsemanticsegmentation_tpu_torch.train import trainer_fcn
     from zeroshotsemanticsegmentation_tpu_torch.utils import RunLogger
 
     out = cli_run_and_resume(tmp, "fcn32s", log, require)
@@ -1121,6 +1137,57 @@ def phase_train_cli(dev, embed, bare_img_s, tmp, log, require) -> dict:
         logger=RunLogger(osp.join(tmp, "loop"), tensorboard=False,
                          verbose=False),
         embeddings=embed, target_embeddings=embed, upscore_trained=False)
+    lp = time_loop(dev, trainer, loader, osp.join(tmp, "loop"), require)
+    t0 = time.perf_counter()
+    ck.save_checkpoint(osp.join(tmp, "save"),
+                       model_state=model.state_dict(),
+                       optim_state=trainer.state.optimizer.state_dict(),
+                       epoch=1, iteration=trainer.iteration,
+                       best_mean_iu=0.0, is_best=True)
+    save_s = time.perf_counter() - t0
+    save_gb = os.path.getsize(osp.join(tmp, "save", "checkpoint")) / 1e9
+    out["loop"] = {
+        "batch": TRAIN_BATCH, "hw": [H, W], "dtype": "bfloat16",
+        "steps": lp["steps"], "images": LOOP_IMAGES,
+        "warmup_steps": lp["warmup_steps"],
+        "log_flush_steps": lp["log_flush_steps"],
+        "flushes_after_steps": lp["flushes_after_steps"],
+        **{k: lp[k] for k in (
+            "seconds", "images_per_s", "first_step_wait_s",
+            "steady_seconds", "steady_images_per_s",
+            "steady_host_ms_per_step", "bare_step_images_per_s",
+            "bare_step_ms")},
+        "phase10_bare_step_images_per_s": bare_img_s,
+        **{k: lp[k] for k in (
+            "loop_over_bare", "steady_over_bare", "overhead_ms_per_step",
+            "steady_overhead_ms_per_step")},
+        "first_batch_s": first_batch_s,
+        "feed_alone_images_per_s": feed_img_s,
+        "allocated_before_gb": base_gb,
+        "max_memory_allocated_gb": lp["max_memory_allocated_gb"],
+        "bare_step_max_memory_allocated_gb":
+            lp["bare_step_max_memory_allocated_gb"],
+        "checkpoint_save_s": save_s, "checkpoint_gb": save_gb,
+        "syncs_between_flushes": 0}
+    log(json.dumps({"train_loop": out["loop"]}))
+    del trainer, model
+    out["launches"] = out["cli"]["launches"]
+    return out
+
+
+def time_loop(dev, trainer, loader, log_dir: str, require) -> dict:
+    """One loop timing of `trainer` (phases 20 and 24): a warm-up epoch on
+    its train loader, then one epoch on `loader` with host syncs turned
+    into errors between the log flushes; its img/s over the epoch and in
+    the steady window (CUDA events after each step, from the end of the
+    first to the end of the last; the host's time between step calls
+    beside it), and the bare step on the same trainer (one batch of
+    `loader` resident on the card, no feed, no logging); the launch counts
+    of the timed epoch and both peaks of memory."""
+    import torch
+    from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
+    from zeroshotsemanticsegmentation_tpu_torch.train import trainer_fcn
+    warm_loader = trainer.train_loader
     trainer.train_epoch()  # warm-up
     trainer.train_loader = loader
     torch.cuda.synchronize()
@@ -1167,14 +1234,14 @@ def phase_train_cli(dev, embed, bare_img_s, tmp, log, require) -> dict:
             and got["block1_train_bwd"] == n_steps
             and len(marks) == n_steps,
             f"loop launches {got} for {n_steps} steps")
-    fs = lcfg.log_flush_steps
+    fs = trainer.cfg.log_flush_steps
     require(flushes == [*range(fs, n_steps, fs), n_steps]
             and len(flushes) >= 3,
             f"loop flushed after steps {flushes}")
     first_wait_s = marks[0][0] - t0
     steady_s = marks[0][1].elapsed_time(marks[-1][1]) / 1e3
     steady_img_s = (n_steps - 1) * TRAIN_BATCH / steady_s
-    rows = csv_rows(osp.join(tmp, "loop", "train_log.csv"))
+    rows = csv_rows(osp.join(log_dir, "train_log.csv"))
     require(len(rows) == n_warm + n_steps
             and all(np.isfinite(float(r[2])) for r in rows),
             f"loop rows {rows}")
@@ -1192,20 +1259,10 @@ def phase_train_cli(dev, embed, bare_img_s, tmp, log, require) -> dict:
     bare_ms = time_ms(bare_step, iters=8, warmup=1)
     bare_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     del dbatch
-    t0 = time.perf_counter()
-    ck.save_checkpoint(osp.join(tmp, "save"),
-                       model_state=model.state_dict(),
-                       optim_state=trainer.state.optimizer.state_dict(),
-                       epoch=1, iteration=trainer.iteration,
-                       best_mean_iu=0.0, is_best=True)
-    save_s = time.perf_counter() - t0
-    save_gb = os.path.getsize(osp.join(tmp, "save", "checkpoint")) / 1e9
     loop_img_s = n_steps * TRAIN_BATCH / loop_s
     bare_here = TRAIN_BATCH / (bare_ms / 1e3)
-    out["loop"] = {
-        "batch": TRAIN_BATCH, "hw": [H, W], "dtype": "bfloat16",
-        "steps": n_steps, "images": LOOP_IMAGES,
-        "warmup_steps": n_warm,
+    return {
+        "steps": n_steps, "warmup_steps": n_warm,
         "log_flush_steps": fs, "flushes_after_steps": flushes,
         "seconds": loop_s, "images_per_s": loop_img_s,
         "first_step_wait_s": first_wait_s,
@@ -1215,23 +1272,14 @@ def phase_train_cli(dev, embed, bare_img_s, tmp, log, require) -> dict:
             1e3 * (marks[-1][0] - marks[0][0]) / (n_steps - 1),
         "bare_step_images_per_s": bare_here,
         "bare_step_ms": bare_ms,
-        "phase10_bare_step_images_per_s": bare_img_s,
         "loop_over_bare": loop_img_s / bare_here,
         "steady_over_bare": steady_img_s / bare_here,
         "overhead_ms_per_step": 1e3 * loop_s / n_steps - bare_ms,
         "steady_overhead_ms_per_step":
             1e3 * steady_s / (n_steps - 1) - bare_ms,
-        "first_batch_s": first_batch_s,
-        "feed_alone_images_per_s": feed_img_s,
-        "allocated_before_gb": base_gb,
         "max_memory_allocated_gb": peak_gb,
         "bare_step_max_memory_allocated_gb": bare_peak_gb,
-        "checkpoint_save_s": save_s, "checkpoint_gb": save_gb,
-        "syncs_between_flushes": 0}
-    log(json.dumps({"train_loop": out["loop"]}))
-    del trainer, model
-    out["launches"] = out["cli"]["launches"]
-    return out
+        "launches": got}
 
 
 def profile_window(fn, iters: int, top: int = 12) -> dict:
@@ -2636,6 +2684,434 @@ def phase_spatial(dev, card, log, require) -> dict:
     return out
 
 
+DECODE_LOOP_IMAGES = LOOP_IMAGES    # phase 24's timed epoch: 40 steps
+DECODE_WARMUP_IMAGES = LOOP_WARMUP_IMAGES
+DECODE_THREADS = (1, 2, 4, 8)       # (d)'s feed-alone thread counts
+# (b): a decode's |err| from its seeded source, for JPEG qualities 85-95
+# (the fixtures' libjpeg decodes: mean 0.34-1.33, max 5-34); a decoder
+# other than libjpeg (nvJPEG) within DECODE_VS_LIBJPEG levels of
+# libjpeg's pixels: its IDCT may round each of Y, Cb and Cr one level
+# otherwise, which libjpeg's colour conversion (R = Y + 1.402 Cr, B = Y +
+# 1.772 Cb) takes to at most 3
+DECODE_MEAN_ERR = 2.0
+DECODE_MAX_ERR = 48
+DECODE_VS_LIBJPEG = 3
+# the label classes of the tree's four label maps, by fixture: the first
+# and third keep only classes seen in every split of preset 14, the
+# second holds train_unseen 1, the fourth val_unseen 6 and 7
+TREE_CLASSES = ((0, 3, 5, 8), (0, 1, 9, 11), (0, 2, 4, 12), (0, 6, 7))
+
+
+@contextlib.contextmanager
+def without_pillow():
+    """`import PIL` fails inside: the native path must not need Pillow
+    (the card's machine may have it; the port must not depend on it)."""
+    saved = {k: v for k, v in sys.modules.items()
+             if k == "PIL" or k.startswith("PIL.")}
+    for k in saved:
+        del sys.modules[k]
+    sys.modules["PIL"] = None
+    try:
+        yield
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(saved)
+
+
+def decode_checks(nl, fx, tmp: str, log, require) -> dict:
+    """Phase 24 (b): the committed JPEG fixtures against their seeded
+    sources (and libjpeg's recorded pixels), PNG and MAT labels written here
+    from seeded arrays held exactly, and corrupt, truncated and oversized
+    files to their error codes."""
+    import scipy.io
+    from zeroshotsemanticsegmentation_tpu_torch.data.native import (
+        DecodeError)
+    from zeroshotsemanticsegmentation_tpu_torch.data.transforms import (
+        transform_image)
+    out = {"images": {}, "labels": {}, "errors": {}}
+    record = fx.load_record()
+    for name, rec in sorted(record.items()):
+        path = osp.join(fx.FIXTURE_DIR, rec["file"])
+        h, w = rec["hw"]
+        imgs, _, sizes = nl.load_batch([path], [None], (H, W), compact=True)
+        require(sizes[0].tolist() == [h, w],
+                f"fixture {name}: size {sizes[0].tolist()}, want {[h, w]}")
+        dec = imgs[0, :h, :w]
+        require(not imgs[0, h:].any() and not imgs[0, :, w:].any(),
+                f"fixture {name}: the bucket's pad is not zero")
+        err = np.abs(dec.astype(np.int32) - fx.as_rgb(fx.source_image(name)))
+        vs = np.abs(dec.astype(np.int32) - fx.libjpeg_decode(name))
+        fimg, _ = nl.decode_image(path, (H, W))
+        want_f = transform_image(dec)
+        row = {"hw": [h, w], "quality": rec["quality"],
+               "subsampling": rec["subsampling"], "mode": rec["mode"],
+               "mean_abs_err": float(err.mean()),
+               "max_abs_err": int(err.max()),
+               "libjpeg_mean_abs_err": rec["decode_mean_abs_err"],
+               "libjpeg_max_abs_err": rec["decode_max_abs_err"],
+               "vs_libjpeg_max": int(vs.max()),
+               "vs_libjpeg_mean": float(vs.mean()),
+               "vs_libjpeg_differ_share": float((vs > 0).mean()),
+               "bit_equal_to_recorded_sha256":
+                   fx.sha256(dec.tobytes()) == rec["decode_sha256"],
+               "float_path_equal": bool(np.array_equal(fimg[:h, :w],
+                                                       want_f))}
+        out["images"][name] = row
+        require(row["mean_abs_err"] <= DECODE_MEAN_ERR
+                and row["max_abs_err"] <= DECODE_MAX_ERR,
+                f"fixture {name}: |err| from its source {row}")
+        require(row["vs_libjpeg_max"] <= DECODE_VS_LIBJPEG,
+                f"fixture {name}: vs libjpeg's pixels {row}")
+        require(row["float_path_equal"],
+                f"fixture {name}: the float path is not the transformed "
+                "uint8 decode")
+    # labels, exact: PNG (stdlib writer) and MAT (scipy)
+    cases = [("png8_gray", 8, False, False), ("png8_palette", 8, True, False),
+             ("png1_gray", 1, False, False), ("png2_gray", 2, False, False),
+             ("png4_gray", 4, False, False), ("png1_palette", 1, True, False),
+             ("png2_palette", 2, True, False),
+             ("png4_palette", 4, True, False),
+             ("png8_gray_adam7", 8, False, True),
+             ("png4_palette_adam7", 4, True, True)]
+    for i, (name, depth, palette, interlace) in enumerate(cases):
+        n_values = min(2 ** depth, 21)
+        lbl = fx.label_array(100 + i, 375, 500, n_values,
+                             boundary=255 if depth == 8 else n_values - 1)
+        path = osp.join(tmp, f"{name}.png")
+        fx.write_png(path, lbl, depth=depth, palette=palette,
+                     interlace=interlace, seed=i)
+        vals = fx.png_values(lbl, depth, palette)
+        got, size = nl.decode_label(path, (H, W))
+        ok = size == (375, 500) and np.array_equal(
+            got[:375, :500], np.where(vals == 255, -1, vals)) and \
+            (got[375:] == -1).all() and (got[:, 500:] == -1).all()
+        got_c, _ = nl.decode_label(path, (H, W), value_offset=-1,
+                                   map255_to_ignore=False)
+        ok = ok and np.array_equal(got_c[:375, :500], vals - 1)
+        out["labels"][name] = ok
+        require(ok, f"label {name} is not its seeded array")
+    for comp in (False, True):
+        lbl = fx.label_array(200 + comp, 366, 500)
+        path = osp.join(tmp, f"gtcls_{int(comp)}.mat")
+        scipy.io.savemat(path, {"GTcls": {
+            "Boundaries": np.zeros((1, 1)), "Segmentation": lbl,
+            "CategoriesPresent": np.unique(lbl)}}, do_compression=comp)
+        got, size = nl.decode_label(path, (H, W))
+        _, labels, _ = nl.load_batch([fx.FIXTURE_DIR + "/landscape_420.jpg"],
+                                     [path], (H, W), compact=True)
+        want = np.where(lbl == 255, -1, lbl.astype(np.int32))
+        ok = size == (366, 500) and np.array_equal(got[:366, :500], want) \
+            and np.array_equal(labels[0, :366, :500], want)
+        out["labels"][f"mat_{'compressed' if comp else 'plain'}"] = ok
+        require(ok, f"MAT label (do_compression={comp}) is not its array")
+    # error codes
+    good_png = osp.join(tmp, "png8_gray.png")
+    png = open(good_png, "rb").read()
+    jpg = open(osp.join(fx.FIXTURE_DIR, "landscape_420.jpg"), "rb").read()
+    bad = {"truncated.png": (png[:len(png) // 2], "label", -1),
+           "bad_crc.png": (png[:30] + bytes([png[30] ^ 0xff]) + png[31:],
+                           "label", -1),
+           "garbage.mat": (b"MATLAB 5.0 MAT-file" + b" " * 105 + b"\x00\x01IM"
+                           + b"\xff" * 64, "label", -3),
+           "unknown.lbl": (b"GIF89a" + b"\x00" * 64, "label", -4),
+           "not_a.jpg": (b"\xff\xd8" + b"\x00" * 64, "image", -1),
+           "truncated.jpg": (jpg[:len(jpg) // 4], "image", None)}
+    for name, (data, kind, want) in bad.items():
+        path = osp.join(tmp, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        try:
+            if kind == "label":
+                nl.decode_label(path, (H, W))
+            else:
+                nl.decode_image(path, (H, W))
+            rc = 0
+        except DecodeError as e:
+            rc = e.rc
+        out["errors"][name] = rc
+        # a truncated JPEG: libjpeg may pad a partial image (0), others fail
+        require(rc == want or (want is None and rc in (0, -1)),
+                f"{name}: rc {rc}, want {want}")
+    big = osp.join(tmp, "big.png")
+    fx.write_png(big, fx.label_array(5, 600, 520))
+    try:
+        nl.decode_label(big, (H, W))
+        rc = size = 0
+    except DecodeError as e:
+        rc, size = e.rc, e.size
+    out["errors"]["big.png"] = rc
+    require(rc == -2 and size == (600, 520),
+            f"a 600x520 label in a {H}x{W} bucket: rc {rc}, size {size}")
+    wide = osp.join(tmp, "wide.mat")
+    scipy.io.savemat(wide, {"GTcls": {"Segmentation": np.full((8, 8), 300,
+                                                              np.uint16)}})
+    try:
+        nl.load_batch([fx.FIXTURE_DIR + "/gray.jpg"], [wide], (H, W),
+                      compact=True)
+        rc = 0
+    except DecodeError as e:
+        rc = e.rc
+    out["errors"]["wide.mat (compact)"] = rc
+    require(rc == -5, f"a label of 300 in the int8 feed: rc {rc}")
+    return out
+
+
+def build_tree(fx, root: str, n_train: int, n_val: int
+               ) -> tuple[str, dict]:
+    """A VOC2012 / SBD layout under `root`/data (JPEGImages and
+    SegmentationClass PNGs for val, SBD img and compressed cls .mat for
+    train): `n_train` train and `n_val` val ids, each a link to one of the
+    fixtures and its label (`TREE_CLASSES`), and split lists in
+    `root`/assets (the bundled embeddings linked in). Returns (data dir,
+    {"assets": dir, "cli_assets": dir with 12 train and 4 val ids,
+    "classes": each train id's label classes})."""
+    import scipy.io
+    data = osp.join(root, "data")
+    voc = osp.join(data, "pascal", "VOCdevkit", "VOC2012")
+    sbd = osp.join(data, "pascal", "benchmark_RELEASE", "dataset")
+    dirs = {k: osp.join(*p) for k, p in (
+        ("jpg", (voc, "JPEGImages")), ("png", (voc, "SegmentationClass")),
+        ("img", (sbd, "img")), ("cls", (sbd, "cls")),
+        ("src", (root, "labels")))}
+    for d in dirs.values():
+        os.makedirs(d)
+    names = sorted(fx.SPECS)
+    srcs, present = [], []
+    for i, name in enumerate(names):
+        h, w = fx.SPECS[name][:2]
+        classes = np.array(TREE_CLASSES[i], np.uint8)
+        lbl = fx.label_array(300 + i, h, w, len(classes))
+        lbl = np.where(lbl == 255, 255, classes[lbl % len(classes)])
+        present.append(set(np.unique(lbl).tolist()) - {255})
+        png = osp.join(dirs["src"], f"{name}.png")
+        fx.write_png(png, lbl.astype(np.uint8), palette=True, seed=i)
+        mat = osp.join(dirs["src"], f"{name}.mat")
+        scipy.io.savemat(mat, {"GTcls": {"Segmentation": lbl}},
+                         do_compression=True)
+        srcs.append((osp.join(fx.FIXTURE_DIR, f"{name}.jpg"), png, mat))
+    train = [f"2008_{i:06d}" for i in range(n_train)]
+    val = [f"2007_{i:06d}" for i in range(n_val)]
+    for i, did in enumerate(train):
+        jpg, _, mat = srcs[i % len(srcs)]
+        os.symlink(jpg, osp.join(dirs["img"], f"{did}.jpg"))
+        os.symlink(mat, osp.join(dirs["cls"], f"{did}.mat"))
+    for i, did in enumerate(val):
+        jpg, png, _ = srcs[i % len(srcs)]
+        os.symlink(jpg, osp.join(dirs["jpg"], f"{did}.jpg"))
+        os.symlink(png, osp.join(dirs["png"], f"{did}.png"))
+    out = {"classes": [present[i % len(srcs)] for i in range(n_train)]}
+    for key, tr, va in (("assets", train, val),
+                        ("cli_assets", train[:12], val[:4])):
+        d = osp.join(root, key, "pascal")
+        os.makedirs(d)
+        os.symlink(osp.join(ROOT, "assets", "pascal", "embeddings"),
+                   osp.join(d, "embeddings"))
+        for split, ids in (("train", tr), ("val", va)):
+            with open(osp.join(d, f"{split}.txt"), "w") as f:
+                f.write("\n".join(ids) + "\n")
+        out[key] = osp.dirname(d)
+    return data, out
+
+
+def phase_decoder(dev, embed, loop20: dict, card: str, log,
+                  require) -> dict:
+    """Phase 24: the native decoder on the card's machine.
+
+    (a) builds the decoder from csrc/zss_loader.cc (g++; libjpeg where the
+        compiler finds jpeglib.h, else nvJPEG) and prints the toolchain;
+    (b) `decode_checks`: the committed JPEG fixtures within the stated
+        |err| of their seeded sources and of libjpeg's pixels (bit-equal to
+        the recorded SHA-256 printed), PNG and MAT labels exact, corrupt,
+        truncated and oversized files to their error codes;
+    (c) a VOC/SBD-layout tree of links to the fixtures in the process's
+        temporary directory (`build_tree`), 960 train and 96 val ids, and
+        the native presence scan of preset 14's train_seen split timed;
+    (d) the feed alone: BatchLoader(PascalVOC("train"), 24, compact, pinned)
+        over the 960 images at 1, 2, 4 and 8 threads, and the host's cores;
+    (e) the loop: FCNTrainer at B=24 over the tree (`time_loop`, as phase
+        20's: a warm-up epoch on the val split, 40 timed steps with host
+        syncs turned into errors between flushes) beside its bare step and
+        phase 20's synthetic loop; every batch natively decoded;
+    (f) the train CLI: `-c 14 -ve 1 -se 0` on the tree at full width (12
+        train and 4 val ids; `num_viz` 0), its files and its log naming the
+        native decoder.
+    (c)-(f) run with `import PIL` failing.
+    """
+    import torch
+    from zeroshotsemanticsegmentation_tpu_torch.cli import train as cli
+    from zeroshotsemanticsegmentation_tpu_torch.configs import get_config
+    from zeroshotsemanticsegmentation_tpu_torch.data import (
+        BatchLoader, PascalVOC)
+    from zeroshotsemanticsegmentation_tpu_torch.data import assets as passets
+    from zeroshotsemanticsegmentation_tpu_torch.data import native
+    from zeroshotsemanticsegmentation_tpu_torch.models.fcn32s import FCN32s
+    from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
+    from zeroshotsemanticsegmentation_tpu_torch.train import (
+        FCNTrainer, make_fcn_optimizer)
+    from zeroshotsemanticsegmentation_tpu_torch.utils import RunLogger
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) the toolchain
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[0]
+    nl = native.NativeLoader.get()
+    out["toolchain"] = {"g++": gxx, **nl.build_info(),
+                        "build_s": native.build_log["seconds"],
+                        "command": native.build_log["command"]}
+    log(f"[decoder] {card}: {json.dumps(out['toolchain'])}")
+    require(osp.samefile(native.SOURCE, osp.join(
+        ROOT, "zeroshotsemanticsegmentation_tpu_torch", "csrc",
+        "zss_loader.cc")), f"the decoder's source is {native.SOURCE}")
+    fx = load_script("torch_make_decode_fixtures")
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) fixtures, labels, error codes
+        out["checks"] = decode_checks(nl, fx, tmp, log, require)
+        log(f"[decoder] checks: {json.dumps(out['checks'])}")
+        with without_pillow():
+            # (c) the tree, the presence scan
+            t0 = time.perf_counter()
+            data, trees = build_tree(fx, tmp, DECODE_LOOP_IMAGES,
+                                     DECODE_WARMUP_IMAGES)
+            out["tree_s"] = time.perf_counter() - t0
+            cfg14 = get_config(14)
+            kw = dict(data_dir=data, assets_dir=trees["assets"])
+            t0 = time.perf_counter()
+            seen = PascalVOC("train_seen", use_presence_cache=False,
+                             train_unseen=list(cfg14.train_unseen),
+                             val_unseen=list(cfg14.val_unseen), **kw)
+            drop = set(cfg14.train_unseen) | set(cfg14.val_unseen)
+            want = sum(not c & drop for c in trees["classes"])
+            out["scan"] = {"labels": DECODE_LOOP_IMAGES,
+                           "seconds": time.perf_counter() - t0,
+                           "kept": len(seen), "want": want}
+            require(len(seen) == want,
+                    f"the scan kept {len(seen)} of {DECODE_LOOP_IMAGES}, "
+                    f"want {want}")
+            # (d) the feed alone, by thread count
+            train_ds = PascalVOC("train", **kw)
+            feed = {}
+            for nt in DECODE_THREADS:
+                loader = BatchLoader(train_ds, TRAIN_BATCH, bucket_hw=(H, W),
+                                     shuffle=True, compact=True,
+                                     num_threads=nt, pin_memory=True)
+                t0 = time.perf_counter()
+                n = sum(b["num_real"] for b in loader)
+                feed[nt] = n / (time.perf_counter() - t0)
+            out["feed_alone_images_per_s"] = feed
+            out["cores"] = len(os.sched_getaffinity(0))
+            log(f"[decoder] {card}: feed alone img/s by threads {feed}, "
+                f"{out['cores']} usable cores; scan {out['scan']}")
+            # (e) the loop
+            lcfg = get_config(14, batch_size=TRAIN_BATCH,
+                              eval_batch_size=TRAIN_BATCH)
+            loader = BatchLoader(train_ds, TRAIN_BATCH, bucket_hw=(H, W),
+                                 shuffle=True, seed=lcfg.seed, compact=True,
+                                 pin_memory=True)
+            warm = BatchLoader(PascalVOC("val", **kw), TRAIN_BATCH,
+                               bucket_hw=(H, W), shuffle=True,
+                               seed=lcfg.seed, compact=True, pin_memory=True)
+            require(loader.decoder == warm.decoder == "native",
+                    f"the loop's decoders: {loader.decoder}, {warm.decoder}")
+            model = FCN32s(20, dtype=torch.bfloat16, fused_block1=True,
+                           generator=torch.Generator().manual_seed(lcfg.seed),
+                           device=dev)
+            trainer = FCNTrainer(
+                cfg=lcfg, model=model,
+                optimizer=make_fcn_optimizer(model, optim="adam",
+                                             lr=lcfg.fcn_lr),
+                train_loader=warm, val_loader=loader,
+                logger=RunLogger(osp.join(tmp, "loop"), tensorboard=False,
+                                 verbose=False),
+                embeddings=embed, target_embeddings=embed,
+                upscore_trained=False)
+            lp = time_loop(dev, trainer, loader, osp.join(tmp, "loop"),
+                           require)
+            require(lp["launches"]["native_batches"] == lp["steps"],
+                    f"{lp['launches']['native_batches']} batches decoded "
+                    f"natively in {lp['steps']} steps")
+            out["loop"] = {
+                **{k: v for k, v in lp.items() if k != "launches"},
+                "native_batches": lp["launches"]["native_batches"],
+                "synthetic_loop_images_per_s": loop20["images_per_s"],
+                "synthetic_steady_over_bare": loop20["steady_over_bare"],
+                "synthetic_loop_over_bare": loop20["loop_over_bare"],
+                "syncs_between_flushes": 0}
+            log(json.dumps({"decoded_loop": out["loop"]}))
+            del trainer, model
+            torch.cuda.empty_cache()
+            # (f) the train CLI on the tree
+            out["cli"] = decoded_cli(cli, tmp, data, trees["cli_assets"],
+                                     passets, _kernels, log, require)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[decoder] {card}: phase 24 {out['seconds']:.1f} s; loop "
+        f"{out['loop']['images_per_s']:.1f} img/s, "
+        f"{out['loop']['loop_over_bare']:.3f}x its bare step (steady "
+        f"{out['loop']['steady_over_bare']:.3f}x; synthetic loop "
+        f"{loop20['steady_over_bare']:.3f}x)")
+    return out
+
+
+def decoded_cli(cli, tmp, data, assets, passets, kernels, log,
+                require) -> dict:
+    """Phase 24 (f): `-c 14 -ve 1 -se 0` through `cli.main` on the tree
+    (its split lists `assets`), full width, `num_viz` 0; its files, finite
+    losses, the native batches (every stage-1 step and validation batch)
+    and its log naming the native decoder."""
+    import io
+    import torch
+    real_run = cli.run_experiment
+
+    def run_no_viz(cfg, **kw):
+        return real_run(cfg.replace(num_viz=0), **kw)
+
+    argv = ["-c", "14", "-ve", "1", "-se", "0", "-n", "decoded", "-dir",
+            data]
+    buf = io.StringIO()
+
+    class Tee(io.TextIOBase):
+        def write(self, s):
+            buf.write(s)
+            return sys.__stdout__.write(s)
+
+        def fileno(self):
+            return sys.__stdout__.fileno()
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(cli, "run_experiment", run_no_viz), \
+            mock.patch.object(passets, "_ASSETS_DIR", assets), \
+            contextlib.redirect_stdout(Tee()):
+        summary = cli.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    got = dict(kernels.launch_counts)
+    log_dir = summary["log_dir"]
+    for name in ("config.yaml", "counts.csv", "train_log.csv",
+                 "val_log.csv", "checkpoint"):
+        require(osp.isfile(osp.join(log_dir, name)),
+                f"the train CLI on the tree did not write {name}")
+    counts = csv_rows(osp.join(log_dir, "counts.csv"))[0]
+    steps = csv_rows(osp.join(log_dir, "train_log.csv"))
+    losses = [float(r[2]) for r in steps]
+    n_s1, n_val = int(counts[0]), int(counts[2])
+    require(len(steps) == n_s1 and all(np.isfinite(losses)),
+            f"the train CLI on the tree: {len(steps)} steps, {losses}")
+    require(got["native_batches"] == n_s1 + n_val
+            and got["costail_fwd"] == n_s1,
+            f"the train CLI on the tree: launches {got} for {n_s1} steps "
+            f"and {n_val} validation batches")
+    line = [x for x in buf.getvalue().splitlines() if "decoded by" in x]
+    require(len(line) == 1 and "the native decoder" in line[0],
+            f"the train CLI's log on its decoder: {line}")
+    shutil.rmtree(log_dir)
+    out = {"seconds": run_s, "counts": counts, "steps": n_s1,
+           "val_batches": n_val, "native_batches": got["native_batches"],
+           "losses": losses, "log_line": line[0]}
+    log(f"[decoder] train CLI {' '.join(argv[:-2])}: {json.dumps(out)}")
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -3729,6 +4205,10 @@ def main() -> None:
     p23 = phase_spatial(dev, card, log, require)
     l21 = p21["launches"]
 
+    # ---- 24. the native decoder: fixtures, the loop and the CLI ------------
+    torch.cuda.empty_cache()
+    p24 = phase_decoder(dev, embed, tcli["loop"], card, log, require)
+
     def launches22(key: str) -> dict:
         """One kernel's launches on phase 22's paths: (a) the world-1 NCCL
         mesh's three steps, (b) each two-rank path by rank, (c) each rank's
@@ -3938,7 +4418,19 @@ def main() -> None:
         f"{p23['a']['one_device_ms']:.2f} ms one device; peaks at "
         f"{SPATIAL_BIG_HW}: {p23['c']}; phase 23 {p23['seconds']:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": kernels}))
+    decoder = {
+        "name": "zss_loader (host C++, not a kernel)",
+        "source": "zeroshotsemanticsegmentation_tpu_torch/csrc/zss_loader.cc",
+        "jpeg": p24["toolchain"]["jpeg"],
+        "native_batches_loop": p24["loop"]["native_batches"],
+        "loop_steps": p24["loop"]["steps"],
+        "native_batches_train_cli": p24["cli"]["native_batches"],
+        "loop_images_per_s": p24["loop"]["images_per_s"],
+        "loop_over_bare": p24["loop"]["loop_over_bare"],
+        "steady_over_bare": p24["loop"]["steady_over_bare"],
+        "feed_alone_images_per_s": p24["feed_alone_images_per_s"],
+        "cores": p24["cores"]}
+    log(json.dumps({"kernels": kernels, "decoder": decoder}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -725,3 +725,55 @@ def _hold_mesh_ranks(cuda, sizes, devices, backend):
             d = (r["train"]["grads"][k].double() - g.double()).norm()
             assert d / g.double().norm().clamp(min=1e-30) < 1e-4, k
         assert (r["serve"] != labels).mean() < 1e-4
+
+
+def test_pinned_native_batch_outlives_its_copy(cuda, tmp_path):
+    """The native decoder writes a batch into pinned tensors of the caching
+    host allocator and `put_batch` copies from those tensors: freed while
+    the copy waits behind other work on its stream, their memory is not
+    handed out again until the copy is done (the allocator's event)."""
+    import importlib.util
+    import os.path as osp
+    import shutil
+
+    from zeroshotsemanticsegmentation_tpu_torch.data import (
+        BatchLoader, PascalVOC)
+    from zeroshotsemanticsegmentation_tpu_torch.train import trainer_fcn
+    root = osp.dirname(osp.dirname(osp.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "fx", osp.join(root, "scripts", "torch_make_decode_fixtures.py"))
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
+    voc = tmp_path / "pascal" / "VOCdevkit" / "VOC2012"
+    (voc / "JPEGImages").mkdir(parents=True)
+    (voc / "SegmentationClass").mkdir()
+    (tmp_path / "assets" / "pascal").mkdir(parents=True)
+    ids = []
+    for i, name in enumerate(sorted(fx.SPECS)):
+        h, w = fx.SPECS[name][:2]
+        shutil.copy(osp.join(fx.FIXTURE_DIR, f"{name}.jpg"),
+                    voc / "JPEGImages" / f"{name}.jpg")
+        fx.write_png(str(voc / "SegmentationClass" / f"{name}.png"),
+                     fx.label_array(i, h, w), seed=i)
+        ids.append(name)
+    (tmp_path / "assets" / "pascal" / "val.txt").write_text(
+        "\n".join(ids) + "\n")
+    ds = PascalVOC("val", data_dir=str(tmp_path),
+                   assets_dir=str(tmp_path / "assets"))
+    loader = BatchLoader(ds, 2, compact=True, pin_memory=True)
+    assert loader.decoder == "native"
+    stream = torch.cuda.Stream()
+    for batch in loader:
+        assert all(t.is_pinned() for t in batch["pinned"].values())
+        want = {k: batch[k].copy() for k in ("image", "label", "sizes")}
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(200_000_000)  # the copies wait behind this
+        dbatch, event = trainer_fcn.put_batch(batch, cuda, stream)
+        del batch
+        # freed host blocks come back only after the copies' events
+        other = [torch.full(v.shape, 77, dtype=torch.from_numpy(v).dtype,
+                            pin_memory=True) for v in want.values()]
+        event.synchronize()
+        for k, v in want.items():
+            assert np.array_equal(dbatch[k].cpu().numpy(), v), k
+        del other

@@ -3,6 +3,7 @@
 import ast
 import os
 import os.path as osp
+import re
 import subprocess
 import sys
 
@@ -45,6 +46,18 @@ def test_no_forbidden_imports(path):
     for name in _imported_roots(path):
         root = name.split(".")[0]
         assert root not in _FORBIDDEN, f"{path} imports {name}"
+
+
+@pytest.mark.parametrize("path", sorted(_sources()) + sorted(
+    osp.join(_PORT, "csrc", f) for f in os.listdir(osp.join(_PORT, "csrc"))),
+    ids=lambda p: osp.relpath(p, _ROOT))
+def test_no_jax_native_library(path):
+    """The port builds its decoder from csrc/zss_loader.cc: no source
+    names the JAX package's native/ directory or its library."""
+    with open(path) as f:
+        text = f.read()
+    assert not re.search(r"(^|[^\w])native/", text), path
+    assert "libzss_loader" not in text, path
 
 
 def test_import_loads_no_jax():

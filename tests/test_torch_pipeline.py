@@ -183,7 +183,8 @@ def test_context_batches_equal_jax(tmp_path, n_classes):
 
 def test_loader_refusals():
     ds = pd.SyntheticDataset(4, size_range=(8, 8))
-    with pytest.raises(NotImplementedError, match="native"):
+    # the native decoder needs a dataset with native_label_kwargs
+    with pytest.raises(RuntimeError, match="native_label_kwargs"):
         pd.BatchLoader(ds, 2, use_native=True)
     pd.BatchLoader(ds, 2, compact=True)
     with pytest.raises(ValueError, match="compact"):

@@ -48,6 +48,7 @@ from zeroshotsemanticsegmentation_tpu_torch.configs.presets import (
 from zeroshotsemanticsegmentation_tpu_torch.data import (
     BatchLoader, PascalContext, PascalVOC, SyntheticDataset,
     load_class_embeddings)
+from zeroshotsemanticsegmentation_tpu_torch.data.native import NativeLoader
 from zeroshotsemanticsegmentation_tpu_torch.models import FCN8s, FCN32s
 from zeroshotsemanticsegmentation_tpu_torch.models.vgg_import import (
     load_vgg16_into_params)
@@ -114,12 +115,21 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
     # 1. data
     train_ds, train_seen_ds, val_ds = _build_datasets(
         cfg, data_dir=data_dir, synthetic=synthetic)
+    # the native decoder wherever the dataset has one (the JAX CLI's
+    # default); on the card it writes into pinned host memory
     mk_loader = lambda ds, bs, sh: BatchLoader(  # noqa: E731
         ds, bs, bucket_hw=tuple(cfg.bucket), shuffle=sh, seed=cfg.seed,
-        compact=cfg.compact_feed)
+        compact=cfg.compact_feed, pin_memory=dev.type == "cuda")
     train_loader = mk_loader(train_ds, cfg.batch_size, True)
     train_seen_loader = mk_loader(train_seen_ds, cfg.batch_size, True)
     val_loader = mk_loader(val_ds, cfg.eval_batch_size, False)
+    decoder = f"the {train_loader.decoder} decoder"
+    if train_loader.decoder == "native":
+        decoder += (f" (zss_loader; JPEG by "
+                    f"{NativeLoader.get().build_info()['jpeg']}, PNG and MAT "
+                    "by its own readers over zlib)")
+    logger.stdout(f"data: {cfg.dataset if not synthetic else 'synthetic'} "
+                  f"decoded by {decoder}")
 
     counts = [str(len(train_seen_ds)), str(len(train_ds) - len(train_seen_ds)),
               str(len(val_ds))]

@@ -24,8 +24,10 @@ import os.path as osp
 import numpy as np
 
 from zeroshotsemanticsegmentation_tpu_torch.data.assets import load_split_ids
+from zeroshotsemanticsegmentation_tpu_torch.data.native import (
+    DecodeError, NativeLoader)
 from zeroshotsemanticsegmentation_tpu_torch.data.transforms import (
-    transform_image)
+    DEFAULT_BUCKET, transform_image)
 
 _SPLITS = ("train", "train_seen", "val")
 
@@ -103,7 +105,7 @@ class SegDatasetBase:
                 pass  # corrupt/truncated cache (killed writer): recompute
         presence = np.zeros((len(ids), 1 + n_class), dtype=bool)
         for i, did in enumerate(ids):
-            lbl = self._load_label(did)
+            lbl = self._scan_label(did)
             u = np.unique(lbl)
             u = u[(u >= -1) & (u < n_class)]
             presence[i, u + 1] = True
@@ -115,6 +117,23 @@ class SegDatasetBase:
             np.savez_compressed(tmp, ids=np.asarray(ids), presence=presence)
             os.replace(tmp, cache_path)
         return presence
+
+    def _scan_label(self, did: str) -> np.ndarray:
+        """One label for the presence scan: through the native decoder
+        where the dataset has `native_label_kwargs` (the scan then needs no
+        PIL; the values are `_load_label`'s), cropped to the size it
+        reports, else `_load_label`."""
+        if not hasattr(self, "native_label_kwargs"):
+            return self._load_label(did)
+        kwargs = self.native_label_kwargs()
+        loader, path = NativeLoader.get(), self.label_path(did)
+        try:
+            lbl, (h, w) = loader.decode_label(path, DEFAULT_BUCKET, **kwargs)
+        except DecodeError as e:
+            if e.rc != -2:  # -2: larger than the bucket; its size is known
+                raise
+            lbl, (h, w) = loader.decode_label(path, e.size, **kwargs)
+        return lbl[:h, :w]
 
     # -- to be provided by subclasses --------------------------------------
 

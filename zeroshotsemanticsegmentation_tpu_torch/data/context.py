@@ -64,6 +64,9 @@ class PascalContext(SegDatasetBase):
         return osp.join(self.data_dir, "context",
                         f"{self.n_classes}_context_labels", f"{did}.png")
 
+    def native_label_kwargs(self) -> dict:
+        return {"value_offset": -1, "map255_to_ignore": False}
+
     def _load_image(self, did: str) -> np.ndarray:
         import PIL.Image
         return np.asarray(PIL.Image.open(self.image_path(did)).convert("RGB"),

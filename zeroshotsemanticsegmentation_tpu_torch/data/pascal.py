@@ -41,6 +41,11 @@ class PascalVOC(SegDatasetBase):
             return osp.join(self._sbd_dir(), "cls", f"{did}.mat")
         return osp.join(self._voc_dir(), "SegmentationClass", f"{did}.png")
 
+    def native_label_kwargs(self) -> dict:
+        """All pascal splits decode natively: the loader dispatches on file
+        magic (VOC PNG label maps and SBD MAT5 GTcls structs)."""
+        return {"value_offset": 0, "map255_to_ignore": True}
+
     def _load_image(self, did: str) -> np.ndarray:
         import PIL.Image
         return np.asarray(PIL.Image.open(self.image_path(did)).convert("RGB"),

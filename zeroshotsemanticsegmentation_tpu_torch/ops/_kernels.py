@@ -19,7 +19,9 @@ kernel (`block1_train`: K3 forward and K4 backward; `costail_fused`: K5 and
 K6), so the counts have keys of their own; the keys of the one-kernel
 libraries `conv1_1` (K8), `pool_bwd` (K9) and `rowdot` (K10b) are the
 wrappers' names. K7 (`pdot`) counts every launch under `pdot` and each
-variant's under `pdot_<variant>` as well.
+variant's under `pdot_<variant>` as well. `native_batches` is no kernel's:
+it counts the batches the native decoder (`data/native.py`) wrote, added
+by `data.pipeline.BatchLoader`.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launch_counts = {name: 0 for name in (
     "szn_fused", "block1_fused", "block1_train_fwd", "block1_train_bwd",
     "costail_fwd", "costail_bwd", "pdot", "pdot_fp32", "pdot_wmma",
-    "pdot_tma", "pdot_narrow", "conv1_1_pairs", "pool_bwd", "rowdot")}
+    "pdot_tma", "pdot_narrow", "conv1_1_pairs", "pool_bwd", "rowdot",
+    "native_batches")}
 build_logs: dict[str, str] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -82,17 +82,21 @@ def put_batch(batch: dict, device: torch.device, stream=None):
 
     On the card each array goes through pinned host memory and a
     non_blocking copy on `stream` (a side stream), and the event is recorded
-    after the copies; `take_batch` makes the compute stream wait on it. On
-    the CPU the tensors share the arrays' memory and the event is None.
-    "num_real" stays a Python int (the steps' `_denom` reads it on the
-    host)."""
-    host = {k: torch.from_numpy(np.ascontiguousarray(batch[k]))
-            for k in _ARRAY_KEYS}
+    after the copies; `take_batch` makes the compute stream wait on it. A
+    batch the native decoder wrote into pinned tensors ("pinned") is copied
+    from them as it is; the copy, issued on the caching host allocator's
+    own tensors, records the allocator's event that keeps their memory
+    from reuse until it is done. On the CPU the tensors share the arrays'
+    memory and the event is None. "num_real" stays a Python int (the steps'
+    `_denom` reads it on the host)."""
+    pinned = batch.get("pinned")
+    host = pinned or {k: torch.from_numpy(np.ascontiguousarray(batch[k]))
+                      for k in _ARRAY_KEYS}
     event = None
     if device.type == "cuda":
         with torch.cuda.stream(stream):
-            out = {k: v.pin_memory().to(device, non_blocking=True)
-                   for k, v in host.items()}
+            out = {k: (host[k] if pinned else host[k].pin_memory()).to(
+                       device, non_blocking=True) for k in _ARRAY_KEYS}
             event = torch.cuda.Event()
             event.record(stream)
     else:
