@@ -197,7 +197,22 @@ Phases, each of which passes or ends the script with a non-zero exit:
    synthetic loop, every batch natively decoded; (f) `-c 14 -ve 1 -se 0`
    through the train CLI on the tree at full width, its log naming the
    native decoder. (c)-(f) run with `import PIL` failing. The kernels line
-   adds the decoder's batches.
+   adds the decoder's batches;
+25. rematerialized blocks, overlapped saves, the decoder's device
+   (`phase_remat`): (a) a full-width bf16 FCN-32s stage-1 step at B=24
+   with `remat=True` beside the plain step (same weights, batch, dropout
+   seed): gradients bit-equal or within the bf16 bar, the fp32 pair
+   (TF32 off) at the gradient bar, launches (K3 2, K4 1, K5 1, K6 1 a
+   remat step), times and peak memory; (b) the pair unpruned at the first
+   batch that fits; (c) FCN-8s's pair; (d) the train CLI with `--remat`
+   and its resume; (e) a routine checkpoint save's return time and its
+   `finish_pending` beside a blocking save, the files equal; (f)
+   `build_info()["device"]` after nvJPEG decodes. The kernels line adds
+   K3-K6's remat launches.
+
+The script reaches no network: `urllib.request.urlretrieve` raises in it,
+so the train CLI's VGG16 fetch of a fresh real-data run (phase 24 (f))
+fails and the run goes on with a warning.
 
 The last line of standard output is {"ok": true, "device": {...}}.
 """
@@ -937,10 +952,14 @@ def _nested_equal(a, b) -> bool:
     return a == b
 
 
-def cli_run_and_resume(tmp: str, arch: str, log, require) -> dict:
+def cli_run_and_resume(tmp: str, arch: str, log, require,
+                       remat: bool = False) -> dict:
     """The train CLI's `-c 14 --synthetic -ve 1 -se 1 --arch <arch>` run
     on the card, and a resume from its last checkpoint (phase 20 for
-    FCN-32s, phase 21 (d) for FCN-8s).
+    FCN-32s, phase 21 (d) for FCN-8s; with `remat`, both with `--remat`,
+    phase 25 (d): K3 runs twice a stage-1 step, again in the backward).
+    The first run returns with its checkpoint complete (saves overlap
+    training).
 
     The run: full width, bf16, the preset's batch sizes (1, 1), so 6
     stage-1 steps, 4 validation images, 8 stage-2 steps and a second
@@ -978,11 +997,14 @@ def cli_run_and_resume(tmp: str, arch: str, log, require) -> dict:
     n_s2 = len(BatchLoader(train_ds, cfg.batch_size))
     n_val = len(BatchLoader(val_ds, cfg.eval_batch_size))
     k1_val = n_val if arch == "fcn32s" else 0
-    want = {"block1_train_fwd": n_s1, "block1_train_bwd": n_s1,
+    flags = ["--remat"] if remat else []
+    tag = arch + ("_remat" if remat else "")
+    want = {"block1_train_fwd": n_s1 * (2 if remat else 1),
+            "block1_train_bwd": n_s1,
             "costail_fwd": n_s1, "costail_bwd": n_s1,
             "block1_fused": n_s2 + 2 * n_val, "szn_fused": k1_val}
     argv = ["-c", "14", "--synthetic", "-ve", "1", "-se", "1", "--arch",
-            arch, "-n", arch, "-dir", tmp]
+            arch, *flags, "-n", tag, "-dir", tmp]
     torch.cuda.synchronize()
     _kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -999,6 +1021,9 @@ def cli_run_and_resume(tmp: str, arch: str, log, require) -> dict:
                  "seenmask_val_log.csv", "checkpoint", "best"):
         require(osp.isfile(osp.join(log_dir, name)),
                 f"train CLI did not write {name}")
+    require(ck._pending is None and not [
+        f for f in os.listdir(log_dir) if f.endswith(".tmp")],
+        "the train CLI returned with a checkpoint save in flight")
     s1 = csv_rows(osp.join(log_dir, "train_log.csv"))
     s2 = csv_rows(osp.join(log_dir, "seenmask_train_log.csv"))
     losses = [float(r[2]) for r in s1 + s2]
@@ -1039,7 +1064,7 @@ def cli_run_and_resume(tmp: str, arch: str, log, require) -> dict:
         return real_train(self)
 
     argv = ["-c", "14", "--synthetic", "-r", path, "-ve", "2", "-se", "0",
-            "--arch", arch, "-n", arch + "_resume", "-dir", tmp]
+            "--arch", arch, *flags, "-n", tag + "_resume", "-dir", tmp]
     _kernels.reset_launch_counts()
     with mock.patch.object(cli, "run_experiment", run_no_viz), \
             mock.patch.object(trainer_fcn.FCNTrainer, "train",
@@ -1061,8 +1086,10 @@ def cli_run_and_resume(tmp: str, arch: str, log, require) -> dict:
     require(len(r1) == n_s1 and {r[0] for r in r1} == {"1"},
             f"resume trained {len(r1)} steps: {r1}")
     require(got["costail_fwd"] == n_s1 and got["szn_fused"] == k1_val
+            and got["block1_train_fwd"] == want["block1_train_fwd"]
             and got["pdot"] == 0, f"resume launches {got}")
-    out["resume"] = {"restored": restored, "steps": len(r1)}
+    out["resume"] = {"restored": restored, "steps": len(r1),
+                     "launches": got}
     out["checkpoint"] = path
     del saved
     shutil.rmtree(resumed["log_dir"])
@@ -3112,6 +3139,263 @@ def decoded_cli(cli, tmp, data, assets, passets, kernels, log,
     return out
 
 
+REMAT_TIMED = 3                  # phase 25's timed steps a variant
+REMAT_UNPRUNED_BATCHES = (TRAIN_BATCH, 16, 12, 8)  # (b): the first that fits
+REMAT_GRAD_BAR = 1e-4            # fp32, TF32 off: phase 9's gradient bar
+FETCHES_REFUSED: list = []       # the URLs `_no_network` refused
+
+
+def _no_network(url, *a, **k):
+    """urllib.request.urlretrieve in this script: it reaches no network.
+    A fetch the train CLI tries (the VGG16 of a fresh real-data run) fails
+    here, and the CLI warns and goes on; the URLs are kept."""
+    FETCHES_REFUSED.append(url)
+    raise OSError(f"chip_smoke.py reaches no network: {url}")
+
+
+def phase_remat(dev, embed, tmp: str, log, require) -> dict:
+    """Phase 25: rematerialized conv blocks (`remat`), overlapped
+    checkpoint saves and the decoder's device.
+
+    (a) one stage-1 step of full-width FCN-32s (config 14's 20-dim heads,
+        bf16, fused block 1, pruned, 512x512, B=24, Adam lr 1e-5, dropout
+        0.5 from a seeded CUDA generator) with `remat=True` beside the same
+        step without it (the same weights, batch and generator seed): every
+        parameter's gradient bit-equal, or else within the stage-1 bf16 bar
+        (at most 2x as far from the fp32 step's as the plain step's); the
+        same pair in fp32, TF32 off, at the gradient bar (relative norm <
+        1e-4); each step's launches (remat: K3 2, K4 1, K5 1, K6 1), its
+        time over REMAT_TIMED steps (CUDA events) and the peak memory over
+        them, whole and less what was allocated before the model was built
+        (earlier phases' tensors);
+    (b) the same pair on the unpruned geometry (`prune_pad=False`) at the
+        first batch of REMAT_UNPRUNED_BATCHES whose plain step fits: times,
+        peaks;
+    (c) FCN-8s: the remat step beside its plain step, gradients as in (a),
+        times and peaks;
+    (d) the train CLI `-c 14 --synthetic --remat` for one epoch of each
+        stage and its resume (`cli_run_and_resume`);
+    (e) the overlapped save of (a)'s remat model and Adam state: how long
+        a routine `save_checkpoint` takes to return and its
+        `finish_pending`, beside a blocking (best) save; the two files
+        equal;
+    (f) `build_info()["device"]` is this card's ordinal after an nvJPEG
+        decode (phase 24's, then one more), and an ordinal the machine
+        lacks raises.
+    """
+    import torch
+    from zeroshotsemanticsegmentation_tpu_torch.data import native
+    from zeroshotsemanticsegmentation_tpu_torch.models.fcn32s import FCN32s
+    from zeroshotsemanticsegmentation_tpu_torch.models.fcn8s import FCN8s
+    from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
+    from zeroshotsemanticsegmentation_tpu_torch.train import (
+        TrainState, make_fcn_optimizer, make_fcn_train_step)
+    from zeroshotsemanticsegmentation_tpu_torch.train import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    k_cls = embed.shape[0]
+    step = make_fcn_train_step(loss_name="cos", num_classes=k_cls,
+                               embeddings=embed)
+
+    def batch_of(b):
+        r = np.random.RandomState(25)
+        return {"image": torch.from_numpy(
+                    r.randn(b, H, W, 3).astype(np.float32) * 40).to(dev),
+                "label": torch.from_numpy(
+                    r.randint(-1, k_cls, (b, H, W)).astype(np.int32)).to(dev),
+                "sizes": torch.full((b, 2), H, dtype=torch.int32, device=dev),
+                "num_real": torch.tensor(b, device=dev)}
+
+    def run(arch, dtype, remat, prune=True, b=TRAIN_BATCH, timed=0,
+            then=None):
+        """One step from seed-0 weights: its launches and fp32 gradients;
+        then `timed` steps timed, with the peak memory over them, also
+        less what was allocated before the model was built (earlier
+        phases' and variants' tensors: `step_peak_gb`); then
+        `then(model, state)`. Returns (record, gradients); the model and
+        its state go with the call."""
+        cls = FCN8s if arch == "fcn8s" else FCN32s
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        model = cls(20, dtype=dtype, fused_block1=True, prune_pad=prune,
+                    remat=remat, generator=torch.Generator().manual_seed(0),
+                    dropout_rate=0.5, device=dev)
+        state = TrainState.create(model, make_fcn_optimizer(
+            model, optim="adam", lr=1e-5))
+        batch = batch_of(b)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        _, aux = step(state, batch, gen)
+        torch.cuda.synchronize()
+        rec = {"arch": arch, "remat": remat, "pruned": prune, "batch": b,
+               "dtype": str(dtype).replace("torch.", ""),
+               "launches": {k: v for k, v in _kernels.launch_counts.items()
+                            if v},
+               "loss": aux["loss"].item()}
+        grads = {n: p.grad.detach().float().clone()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        if timed:
+            torch.cuda.reset_peak_memory_stats()
+            rec["ms"] = time_ms(lambda: step(state, batch, gen),
+                                iters=timed, warmup=1)
+            peak = torch.cuda.max_memory_allocated()
+            rec["peak_gb"] = peak / 1e9
+            rec["step_peak_gb"] = (peak - before) / 1e9
+            rec["allocated_before_gb"] = before / 1e9
+        require(np.isfinite(rec["loss"]), f"remat phase loss: {rec}")
+        log(f"[remat] {json.dumps(rec)}")
+        if then is not None:
+            then(model, state)
+        return rec, grads
+
+    def held(tag, plain, remat, fp32_plain, fp32_remat) -> dict:
+        """remat's gradients against the plain step's: bit-equal, or
+        within the bf16 bar against fp32; fp32 at the gradient bar."""
+        require(set(plain) == set(remat) == set(fp32_plain)
+                == set(fp32_remat), f"{tag}: gradient sets differ")
+        differ = [n for n in plain if not torch.equal(remat[n], plain[n])]
+        bar = {n: {"remat": rel(remat[n], fp32_plain[n]),
+                   "plain": rel(plain[n], fp32_plain[n])} for n in differ}
+        misses = [n for n, r in bar.items() if not r["remat"] <= 2 * r["plain"]]
+        require(not misses, f"{tag}: remat gradients more than 2x the plain "
+                f"step's error vs fp32: {misses} {bar}")
+        f32 = {n: rel(fp32_remat[n], fp32_plain[n]) for n in fp32_plain}
+        worst = max(f32, key=f32.get)
+        require(f32[worst] < REMAT_GRAD_BAR,
+                f"{tag}: fp32 remat gradient {worst} rel {f32[worst]}")
+        out = {"bf16_bit_equal": len(plain) - len(differ),
+               "bf16_differ": differ, "bf16_bar": bar,
+               "fp32_worst_rel": f32[worst], "fp32_worst": worst,
+               "fp32_bit_equal": sum(torch.equal(fp32_remat[n],
+                                                 fp32_plain[n])
+                                     for n in fp32_plain)}
+        log(f"[remat] {tag} gradients: {json.dumps(out)}")
+        return out
+
+    def remat_launches(rec, k3):
+        want = {"block1_train_fwd": k3, "block1_train_bwd": 1 if k3 else 0,
+                "costail_fwd": 1, "costail_bwd": 1}
+        got = {k: rec["launches"].get(k, 0) for k in want}
+        require(got == want and not rec["launches"].get("block1_fused")
+                and not rec["launches"].get("pdot"),
+                f"remat launches {rec['launches']}, expected {want}")
+
+    out = {}
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def overlapped_save(model, state):
+        """(e): a routine save of `model` and its Adam state, its
+        `finish_pending`, and a blocking (best) save of the same; the two
+        files equal."""
+        kw = dict(model_state=model.state_dict(),
+                  optim_state=state.optimizer.state_dict(), epoch=1,
+                  iteration=4, best_mean_iu=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save_checkpoint(osp.join(tmp, "routine"), is_best=False, **kw)
+        ret_s = time.perf_counter() - t0
+        in_flight = ck._pending is not None
+        t0 = time.perf_counter()
+        ck.finish_pending()
+        fin_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ck.save_checkpoint(osp.join(tmp, "blocking"), is_best=True, **kw)
+        block_s = time.perf_counter() - t0
+        require(in_flight and ck._pending is None,
+                "a routine save did not overlap, or a best save left one in "
+                "flight")
+        files = [torch.load(osp.join(tmp, d, "checkpoint"),
+                            map_location="cpu", weights_only=True)
+                 for d in ("routine", "blocking")]
+        require(_nested_equal(files[0], files[1]),
+                "the overlapped save's file differs from the blocking save's")
+        gb = osp.getsize(osp.join(tmp, "routine", "checkpoint")) / 1e9
+        out["save"] = {"routine_return_s": ret_s, "finish_pending_s": fin_s,
+                       "blocking_s": block_s, "gb": gb}
+        log(f"[remat] overlapped save: {json.dumps(out['save'])}")
+        for d in ("routine", "blocking"):
+            shutil.rmtree(osp.join(tmp, d))
+
+    # (a) pruned FCN-32s; (e) on its remat model after the timed steps
+    a_plain, g_plain = run("fcn32s", bf, False, timed=REMAT_TIMED)
+    a_remat, g_remat = run("fcn32s", bf, True, timed=REMAT_TIMED,
+                           then=overlapped_save)
+    remat_launches(a_plain, 1)
+    remat_launches(a_remat, 2)
+    _, g32_plain = run("fcn32s", f32, False)
+    _, g32_remat = run("fcn32s", f32, True)
+    out["a"] = {"plain": a_plain, "remat": a_remat,
+                "grads": held("pruned FCN-32s", g_plain, g_remat, g32_plain,
+                              g32_remat)}
+    del g_plain, g_remat, g32_plain, g32_remat
+
+    # (b) the unpruned geometry: the first batch whose plain step fits
+    for b in REMAT_UNPRUNED_BATCHES:
+        try:
+            b_plain, _ = run("fcn32s", bf, False, prune=False, b=b,
+                             timed=REMAT_TIMED)
+            break
+        except torch.cuda.OutOfMemoryError:
+            log(f"[remat] unpruned B={b}: out of memory without remat")
+    else:
+        fail(f"no unpruned batch of {REMAT_UNPRUNED_BATCHES} fits")
+    b_remat, _ = run("fcn32s", bf, True, prune=False, b=b,
+                     timed=REMAT_TIMED)
+    remat_launches(b_plain, 0)
+    remat_launches(b_remat, 0)
+    out["b"] = {"plain": b_plain, "remat": b_remat, "batch": b}
+
+    # (c) FCN-8s
+    c_plain, g_plain = run("fcn8s", bf, False, timed=REMAT_TIMED)
+    c_remat, g_remat = run("fcn8s", bf, True, timed=REMAT_TIMED)
+    remat_launches(c_plain, 1)
+    remat_launches(c_remat, 2)
+    _, g32_plain = run("fcn8s", f32, False)
+    _, g32_remat = run("fcn8s", f32, True)
+    out["c"] = {"plain": c_plain, "remat": c_remat,
+                "grads": held("FCN-8s", g_plain, g_remat, g32_plain,
+                              g32_remat)}
+    del g_plain, g_remat, g32_plain, g32_remat
+    torch.cuda.empty_cache()
+
+    # (d) the train CLI with --remat, and its resume
+    d = cli_run_and_resume(tmp, "fcn32s", log, require, remat=True)
+    out["d"] = {"cli": d["cli"], "resume": d["resume"]}
+    os.remove(d["checkpoint"])
+
+    # (f) the decoder's device
+    nl = native.NativeLoader.get()
+    ordinal = torch.cuda.current_device()
+    info = nl.build_info()
+    fx = load_script("torch_make_decode_fixtures")
+    name = sorted(fx.SPECS)[0]
+    path = osp.join(fx.FIXTURE_DIR, fx.load_record()[name]["file"])
+    imgs, _, sizes = nl.load_batch([path], [None], (512, 512), compact=True,
+                                   device=ordinal)
+    again = nl.build_info()
+    refused = False
+    try:
+        nl.set_device(torch.cuda.device_count())
+    except RuntimeError:
+        refused = True
+    nvjpeg = info["jpeg"] == "nvjpeg"
+    want = ordinal if nvjpeg else None
+    require(info["device"] == want and again["device"] == want,
+            f"the decoder's device: {info['device']} after phase 24, "
+            f"{again['device']} after one more decode, want {want}")
+    require(refused or not nvjpeg, "an ordinal the machine lacks was taken")
+    require(int(sizes[0].prod()) > 0 and imgs.any(), "the decode is empty")
+    out["f"] = {"jpeg": info["jpeg"], "device_after_phase24": info["device"],
+                "device_after_decode": again["device"], "ordinal": ordinal,
+                "missing_ordinal_refused": refused,
+                "fetches_refused": list(FETCHES_REFUSED)}
+    log(f"[remat] decoder device: {json.dumps(out['f'])}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[remat] phase 25: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -3120,6 +3404,8 @@ def main() -> None:
         fail("torch is not installed")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
+    import urllib.request
+    urllib.request.urlretrieve = _no_network
     try:
         from zeroshotsemanticsegmentation_tpu_torch.data.assets import (
             load_class_embeddings)
@@ -4209,6 +4495,25 @@ def main() -> None:
     torch.cuda.empty_cache()
     p24 = phase_decoder(dev, embed, tcli["loop"], card, log, require)
 
+    # ---- 25. remat, overlapped saves, the decoder's device -----------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        p25 = phase_remat(dev, embed, tmp, log, require)
+
+    def launches25(key: str) -> dict:
+        """One kernel's launches on phase 25's remat paths: one step of
+        each variant (plain, remat), and the train CLI's run with --remat
+        and its resume (K1 and K2 in their validations)."""
+        return {"launches_remat": {
+            "stage1_pruned": [p25["a"][v]["launches"].get(key, 0)
+                              for v in ("plain", "remat")],
+            "stage1_unpruned": [p25["b"][v]["launches"].get(key, 0)
+                                for v in ("plain", "remat")],
+            "fcn8s": [p25["c"][v]["launches"].get(key, 0)
+                      for v in ("plain", "remat")],
+            "train_cli": p25["d"]["cli"]["launches"].get(key, 0),
+            "train_cli_resume": p25["d"]["resume"]["launches"].get(key, 0)}}
+
     def launches22(key: str) -> dict:
         """One kernel's launches on phase 22's paths: (a) the world-1 NCCL
         mesh's three steps, (b) each two-rank path by rank, (c) each rank's
@@ -4246,7 +4551,8 @@ def main() -> None:
          "launches": launches["szn_fused"],
          "launches_train_cli": cli_launches["szn_fused"],
          **launches21("szn_fused"), **launches22("szn_fused"),
-         **launches23("szn_fused"), "band": p23["k1_band"],
+         **launches23("szn_fused"), **launches25("szn_fused"),
+         "band": p23["k1_band"],
          "launches_eval": evals["k1_launches"], "max_abs_err": k1_maxerr,
          "flip_rate": k1_flips, "flip_rate_k33": k33_flips,
          "flip_rate_ties": tie_flips, "ms": k1_ms,
@@ -4260,7 +4566,8 @@ def main() -> None:
          "launches": launches["block1_fused"],
          "launches_train_cli": cli_launches["block1_fused"],
          **launches21("block1_fused"), **launches22("block1_fused"),
-         **launches23("block1_fused"), "band": p23["k2_band"],
+         **launches23("block1_fused"), **launches25("block1_fused"),
+         "band": p23["k2_band"],
          "max_abs_err": k2_bf16_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms,
@@ -4277,6 +4584,7 @@ def main() -> None:
          "launches": tlaunches["block1_train_fwd"],
          "launches_train_cli": cli_launches["block1_train_fwd"],
          **launches21("block1_train_fwd"), **launches22("block1_train_fwd"),
+         **launches25("block1_train_fwd"),
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": k3_lib_ms,
@@ -4292,6 +4600,7 @@ def main() -> None:
          "launches": tlaunches["block1_train_bwd"],
          "launches_train_cli": cli_launches["block1_train_bwd"],
          **launches21("block1_train_bwd"), **launches22("block1_train_bwd"),
+         **launches25("block1_train_bwd"),
          "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": k4_lib_ms,
@@ -4310,6 +4619,7 @@ def main() -> None:
          "launches": tlaunches["costail_fwd"],
          "launches_train_cli": cli_launches["costail_fwd"],
          **launches21("costail_fwd"), **launches22("costail_fwd"),
+         **launches25("costail_fwd"),
          "max_abs_err": tail_errs[20][0], "ms": tail20["k5_ms"],
          "device_ms": tail20["k5_device_ms"],
          "bound_share": tail20["k5_share"],
@@ -4338,6 +4648,7 @@ def main() -> None:
          "launches": tlaunches["costail_bwd"],
          "launches_train_cli": cli_launches["costail_bwd"],
          **launches21("costail_bwd"), **launches22("costail_bwd"),
+         **launches25("costail_bwd"),
          "max_abs_err": tail_errs[20][1], "ms": tail20["k6_ms"],
          "device_ms": tail20["k6_device_ms"],
          "bound_share": tail20["k6_share"],
@@ -4430,7 +4741,21 @@ def main() -> None:
         "steady_over_bare": p24["loop"]["steady_over_bare"],
         "feed_alone_images_per_s": p24["feed_alone_images_per_s"],
         "cores": p24["cores"]}
-    log(json.dumps({"kernels": kernels, "decoder": decoder}))
+    decoder["device"] = p25["f"]
+    remat = {k: {v: {f: p25[k][v].get(f) for f in (
+        "batch", "ms", "peak_gb", "step_peak_gb")}
+        for v in ("plain", "remat")} for k in ("a", "b", "c")}
+    remat["save"] = p25["save"]
+    log(f"[remat] {card}: pruned B={TRAIN_BATCH} "
+        f"{p25['a']['plain']['ms']:.2f} -> {p25['a']['remat']['ms']:.2f} ms, "
+        f"step peak {p25['a']['plain']['step_peak_gb']:.2f} -> "
+        f"{p25['a']['remat']['step_peak_gb']:.2f} GB; unpruned "
+        f"B={p25['b']['batch']} {p25['b']['plain']['step_peak_gb']:.2f} -> "
+        f"{p25['b']['remat']['step_peak_gb']:.2f} GB; routine save returns in "
+        f"{p25['save']['routine_return_s']:.3f} s vs "
+        f"{p25['save']['blocking_s']:.3f} s blocking; phase 25 "
+        f"{p25['seconds']:.1f} s")
+    log(json.dumps({"kernels": kernels, "decoder": decoder, "remat": remat}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

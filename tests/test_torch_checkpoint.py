@@ -1,9 +1,14 @@
 """The port's checkpoints (reference `torch.save` files) and their interop
 with the JAX package's reference import / export, VGG16 import, and resume:
-a resumed run takes the same next step as an uninterrupted one."""
+a resumed run takes the same next step as an uninterrupted one. Overlapped
+saves: a routine save returns before its file is written, a best save
+blocks, reads wait for a save in flight, a writer error is raised at the
+next call, and a run's checkpoint equals one written by blocking saves."""
 
+import copy
 import os
 import os.path as osp
+import threading
 
 import numpy as np
 import pytest
@@ -119,6 +124,7 @@ def test_save_restore_round_trip_and_best_link(tmp_path):
                          optim_state=opt.state_dict(), epoch=3, iteration=20,
                          best_mean_iu=0.5, is_best=False,
                          upscore_trained=True)
+    ckpt.finish_pending()  # a routine save writes in the background
     assert os.stat(path).st_ino != os.stat(best).st_ino
     latest, kept = ckpt.restore_checkpoint(str(path)), \
         ckpt.restore_checkpoint(str(best))
@@ -137,6 +143,7 @@ def test_optim_state_loads_into_the_reference_construction(tmp_path):
     ckpt.save_checkpoint(str(tmp_path), model_state=model.state_dict(),
                          optim_state=opt.state_dict(), epoch=0, iteration=3,
                          best_mean_iu=0.1, is_best=False)
+    ckpt.finish_pending()  # a routine save writes in the background
     blob = torch.load(tmp_path / "checkpoint", weights_only=True)
     ref = FCN32s(C, channel_scale=SCALE, device="cpu")
     mods = [m for m in ref_import.CONV_MODULES if m != "seenmask_score"]
@@ -406,6 +413,7 @@ def test_jax_import_reads_a_port_fcn8s_checkpoint(tmp_path):
     ckpt.save_checkpoint(str(tmp_path), model_state=model.state_dict(),
                          optim_state={}, epoch=0, iteration=0,
                          best_mean_iu=0.0, is_best=False)
+    ckpt.finish_pending()  # a routine save writes in the background
     target = {name: {"kernel": np.zeros(v.shape[2:] + v.shape[1::-1],
                                         np.float32),
                      "bias": np.zeros(v.shape[0], np.float32)}
@@ -451,3 +459,129 @@ def test_reference_fcn32s_file_into_fcn8s(tmp_path, jax_params):
     with pytest.raises(ValueError, match="stage-2-trained"):
         ref_import.load_reference_checkpoint(str(tmp_path / "trained"),
                                              target)
+
+
+# ---- overlapped saves ------------------------------------------------------
+
+def _save(tmp_path, model, opt, epoch, is_best):
+    ckpt.save_checkpoint(str(tmp_path), model_state=model.state_dict(),
+                         optim_state=opt.state_dict(), epoch=epoch,
+                         iteration=10 * epoch, best_mean_iu=0.5,
+                         is_best=is_best)
+
+
+def _gated_torch_save(monkeypatch):
+    """torch.save that waits for the returned event before it writes."""
+    gate, real = threading.Event(), torch.save
+
+    def save(obj, f):
+        assert gate.wait(60), "the gate never opened"
+        real(obj, f)
+
+    monkeypatch.setattr(torch, "save", save)
+    return gate
+
+
+def test_routine_save_returns_before_its_file_is_written(tmp_path,
+                                                         monkeypatch):
+    """A routine save returns while its torch.save still waits; the file
+    holds the state at the call, although the weights and Adam's moments
+    change in place before it is written; `finish_pending` writes it."""
+    model = _model()
+    opt = _trained(model)
+    want_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    want_opt = copy.deepcopy(opt.state_dict())
+    gate = _gated_torch_save(monkeypatch)
+    _save(tmp_path, model, opt, 1, is_best=False)
+    path = tmp_path / "checkpoint"
+    assert not path.exists() and ckpt._pending is not None
+    _trained(model, steps=1)  # the next steps update everything in place
+    gate.set()
+    ckpt.finish_pending()
+    assert path.exists() and ckpt._pending is None
+    assert not (tmp_path / "checkpoint.tmp").exists()
+    got = ckpt.restore_checkpoint(str(path))
+    assert got["epoch"] == 1
+    _assert_sd_equal(got["params"], want_sd)
+    _assert_nested_equal(got["opt_state"], want_opt)
+
+
+def test_best_save_blocks_and_waits_for_the_save_in_flight(tmp_path,
+                                                           monkeypatch):
+    model = _model()
+    opt = _trained(model)
+    gate = _gated_torch_save(monkeypatch)
+    _save(tmp_path, model, opt, 1, is_best=False)
+    threading.Timer(0.3, gate.set).start()
+    _save(tmp_path, model, opt, 2, is_best=True)  # waits for epoch 1 first
+    assert ckpt._pending is None
+    best = ckpt.restore_checkpoint(str(tmp_path / "best"))
+    assert best["epoch"] == 2
+    assert os.stat(tmp_path / "best").st_ino == \
+        os.stat(tmp_path / "checkpoint").st_ino
+
+
+def test_reads_wait_for_a_save_in_flight_to_their_directory(tmp_path,
+                                                            monkeypatch):
+    """checkpoint_exists and restore_checkpoint of a path inside the log
+    directory being written wait for its save; other paths do not."""
+    model = _model()
+    opt = _trained(model)
+    gate = _gated_torch_save(monkeypatch)
+    _save(tmp_path / "run", model, opt, 3, is_best=False)
+    assert not ckpt.checkpoint_exists(str(tmp_path / "other" / "checkpoint"))
+    assert ckpt._pending is not None  # another directory: no wait
+    threading.Timer(0.3, gate.set).start()
+    assert ckpt.checkpoint_exists(str(tmp_path / "run" / "checkpoint"))
+    assert ckpt._pending is None
+
+
+@pytest.mark.parametrize("surfaces_at", ["finish_pending", "next_save"])
+def test_a_writer_error_is_raised_at_the_next_call(tmp_path, monkeypatch,
+                                                   surfaces_at):
+    model = _model()
+    opt = _trained(model, steps=0)
+    real = torch.save
+
+    def full_disk(obj, f):
+        raise OSError(28, "No space left on device")
+
+    monkeypatch.setattr(torch, "save", full_disk)
+    _save(tmp_path, model, opt, 1, is_best=False)  # returns: the writer fails
+    monkeypatch.setattr(torch, "save", real)
+    with pytest.raises(OSError, match="No space left"):
+        if surfaces_at == "finish_pending":
+            ckpt.finish_pending()
+        else:
+            _save(tmp_path, model, opt, 2, is_best=False)
+    ckpt.finish_pending()  # raised once; the next save writes
+    _save(tmp_path, model, opt, 3, is_best=False)
+    ckpt.finish_pending()
+    assert ckpt.restore_checkpoint(str(tmp_path / "checkpoint"))["epoch"] == 3
+
+
+def test_resume_after_overlapped_saves_equals_blocking_saves(tmp_path,
+                                                             monkeypatch):
+    """run_experiment returns with every file on disk; its checkpoint and a
+    resume from it equal a run whose saves all block."""
+    cfg1, cfg2 = _cfg(fcn_epochs=1), _cfg(fcn_epochs=2)
+    _run(tmp_path, "overlap", cfg1)
+    assert ckpt._pending is None
+    assert not [f for f in os.listdir(tmp_path / "overlap")
+                if f.endswith(".tmp")]
+    _run(tmp_path, "overlap2", cfg2,
+         resume=str(tmp_path / "overlap" / "checkpoint"))
+    with monkeypatch.context() as m:  # every save writes in the caller
+        m.setattr(ckpt, "_start_writer", ckpt._write)
+        _run(tmp_path, "block", cfg1)
+        _run(tmp_path, "block2", cfg2,
+             resume=str(tmp_path / "block" / "checkpoint"))
+    for a, b in (("overlap", "block"), ("overlap2", "block2")):
+        got = ckpt.restore_checkpoint(str(tmp_path / a / "checkpoint"))
+        want = ckpt.restore_checkpoint(str(tmp_path / b / "checkpoint"))
+        assert (got["epoch"], got["iteration"]) == \
+            (want["epoch"], want["iteration"])
+        _assert_sd_equal(got["params"], want["params"])
+        _assert_nested_equal(got["opt_state"], want["opt_state"])
+    assert _rows(tmp_path / "overlap2" / "train_log.csv") == \
+        _rows(tmp_path / "block2" / "train_log.csv")

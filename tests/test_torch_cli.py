@@ -78,16 +78,39 @@ def test_cli_refusals(argv, exc):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(data_parallel=2, batch_size=2, eval_batch_size=2), "2 processes"),
-    (dict(remat=True), "remat")])
+    (dict(data_parallel=2, batch_size=2, eval_batch_size=2), "2 processes")])
 def test_run_experiment_refuses_unported_options(tmp_path, kw, match):
-    """remat is not ported; a 2-rank config without its mesh (one process)
-    is refused."""
+    """A 2-rank config without its mesh (one process) is refused."""
     from zeroshotsemanticsegmentation_tpu_torch.configs import get_config
-    exc = ValueError if "data_parallel" in kw else NotImplementedError
-    with pytest.raises(exc, match=match):
+    with pytest.raises(ValueError, match=match):
         cli.run_experiment(get_config(14, **kw), data_dir=str(tmp_path),
                            synthetic=True, device="cpu")
+
+
+def test_remat_trains_and_resumes(tmp_path):
+    """`--remat` (rematerialized conv blocks) trains both stages and
+    resumes. On the CPU its gradients are bit-equal to the plain run's, so
+    the two runs log the same losses and metrics; the resume continues
+    from the remat run's checkpoint."""
+    logs = {}
+    for tag, extra in (("plain", []), ("remat", ["--remat"])):
+        out = cli.main(ARGV + extra + ["--device", "cpu",
+                                       "-dir", str(tmp_path / tag)])
+        logs[tag] = out["log_dir"]
+    with open(osp.join(logs["remat"], "config.yaml")) as f:
+        assert yaml.safe_load(f)["remat"] is True
+    for name in ("train_log.csv", "val_log.csv", "seenmask_train_log.csv"):
+        got = [r[:-1] for r in _rows(osp.join(logs["remat"], name))]
+        want = [r[:-1] for r in _rows(osp.join(logs["plain"], name))]
+        assert len(got) > 1 and got == want, name  # all but the time
+    first = ckpt.restore_checkpoint(osp.join(logs["remat"], "checkpoint"))
+    out = cli.main(ARGV + ["--remat", "--device", "cpu", "-ve", "2",
+                           "-se", "0", "-dir", str(tmp_path / "resume"),
+                           "-r", osp.join(logs["remat"], "checkpoint")])
+    rows = _rows(osp.join(out["log_dir"], "train_log.csv"))
+    assert len(rows) > 1 and {r[0] for r in rows[1:]} == {"1"}
+    end = ckpt.restore_checkpoint(osp.join(out["log_dir"], "checkpoint"))
+    assert end["epoch"] == 1 and end["iteration"] > first["iteration"]
 
 
 def test_viz_without_pillow_raises_before_training(tmp_path, monkeypatch):

@@ -20,6 +20,9 @@ cudaError_t cudaFree(void*) { return cudaSuccess; }
 cudaError_t cudaMemcpyAsync(void*, const void*, size_t, cudaMemcpyKind, cudaStream_t) { return cudaSuccess; }
 cudaError_t cudaStreamSynchronize(cudaStream_t) { return cudaSuccess; }
 cudaError_t cudaStreamCreateWithFlags(cudaStream_t*, unsigned int) { return cudaSuccess; }
+cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+cudaError_t cudaGetDeviceCount(int* n) { *n = 1; return cudaSuccess; }
 
 int main(int argc, char** argv) {
   static const YccTables ycc;

@@ -20,10 +20,14 @@ nccl), or all on the one ``--device`` given (``cuda:0`` or ``cpu``, over
 gloo: nccl refuses two ranks on one card). Rank 0 alone writes logs and
 checkpoints.
 
-Not ported: fetching datasets and VGG16 weights (the JAX package's
-data/download.py and models/pretrained.py): a missing dataset raises its
-constructor's error, and a fresh run without VGG16 weights starts from a
-random backbone with a warning.
+As the JAX CLI does, a run on real data fetches the missing dataset
+archives at startup (`data.download`), and a fresh ``train`` run without
+``--vgg16`` fetches the caffe VGG16 into ``<data_dir>/models/``, md5-checked
+(`models.pretrained`); on a mesh rank 0 fetches while the others wait. A
+failed fetch logs a warning and the run goes on: a missing dataset then
+raises its constructor's error, and a missing VGG16 leaves a random backbone
+with a warning. Routine checkpoint saves overlap training
+(`train.checkpoint`); the run returns with every file on disk.
 """
 
 from __future__ import annotations
@@ -48,8 +52,12 @@ from zeroshotsemanticsegmentation_tpu_torch.configs.presets import (
 from zeroshotsemanticsegmentation_tpu_torch.data import (
     BatchLoader, PascalContext, PascalVOC, SyntheticDataset,
     load_class_embeddings)
+from zeroshotsemanticsegmentation_tpu_torch.data.download import (
+    download_context, download_pascal)
 from zeroshotsemanticsegmentation_tpu_torch.data.native import NativeLoader
 from zeroshotsemanticsegmentation_tpu_torch.models import FCN8s, FCN32s
+from zeroshotsemanticsegmentation_tpu_torch.models.pretrained import (
+    cached_download_vgg16)
 from zeroshotsemanticsegmentation_tpu_torch.models.vgg_import import (
     load_vgg16_into_params)
 from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
@@ -60,6 +68,39 @@ from zeroshotsemanticsegmentation_tpu_torch.train import (
 from zeroshotsemanticsegmentation_tpu_torch.train import checkpoint as ckpt
 from zeroshotsemanticsegmentation_tpu_torch.utils import RunLogger
 from zeroshotsemanticsegmentation_tpu_torch.utils.logging import _TZ
+
+
+# where a failed fetch sends the user: the README's section on the port's
+# datasets and weights
+_PROVISIONING = "README.md, 'Datasets and VGG16 weights' in the port's section"
+
+
+def _fetch(fetch, mesh) -> Exception | None:
+    """`fetch()` on rank 0 (every rank waits for it on a mesh); its
+    exception, or None."""
+    err = None
+    if mesh is None or mesh.rank == 0:
+        try:
+            fetch()
+        except Exception as e:  # noqa: BLE001 — logged by the caller
+            err = e
+    if mesh is not None:
+        dist.barrier()
+    return err
+
+
+def _ensure_datasets(cfg, data_dir, logger, mesh=None) -> None:
+    """The JAX CLI's startup fetch of missing dataset archives (reference
+    train.py:71 calls download(data_dir)); archives already present are
+    skipped. A failed fetch is logged and the dataset constructor then
+    raises its usual error."""
+    fetch = download_pascal if cfg.dataset == "pascal" else download_context
+    err = _fetch(lambda: fetch(data_dir), mesh)
+    if err is not None:
+        logger.stdout(f"WARNING: dataset auto-download failed ({err!r}); "
+                      "expecting pre-provisioned data under "
+                      f"{osp.join(data_dir, cfg.dataset)} "
+                      f"(see {_PROVISIONING})")
 
 
 def _build_datasets(cfg, *, data_dir, synthetic):
@@ -99,8 +140,6 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
     check_world_size(cfg, 1 if mesh is None else mesh.size)
     dev = resolve_device(device) if mesh is None else mesh.device
     main_rank = mesh is None or mesh.rank == 0
-    if cfg.remat:
-        raise NotImplementedError("remat: rematerialization is not ported")
     if cfg.num_viz > 0 and importlib.util.find_spec("PIL") is None:
         # fail before training, not at the first validation
         raise RuntimeError(
@@ -113,13 +152,16 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
     logger.dump_config(dataclasses.asdict(cfg))
 
     # 1. data
+    if not synthetic:
+        _ensure_datasets(cfg, data_dir, logger, mesh)
     train_ds, train_seen_ds, val_ds = _build_datasets(
         cfg, data_dir=data_dir, synthetic=synthetic)
     # the native decoder wherever the dataset has one (the JAX CLI's
     # default); on the card it writes into pinned host memory
     mk_loader = lambda ds, bs, sh: BatchLoader(  # noqa: E731
         ds, bs, bucket_hw=tuple(cfg.bucket), shuffle=sh, seed=cfg.seed,
-        compact=cfg.compact_feed, pin_memory=dev.type == "cuda")
+        compact=cfg.compact_feed, pin_memory=dev.type == "cuda",
+        device=dev)
     train_loader = mk_loader(train_ds, cfg.batch_size, True)
     train_seen_loader = mk_loader(train_seen_ds, cfg.batch_size, True)
     val_loader = mk_loader(val_ds, cfg.eval_batch_size, False)
@@ -169,10 +211,10 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
                                        and dev.type == "cuda")
     model_cls = FCN8s if cfg.arch == "fcn8s" else FCN32s
     model = model_cls(cfg.head_channels, dtype=dtype,
-                   channel_scale=cfg.channel_scale, prune_pad=cfg.prune_pad,
-                   fused_block1=fb1,
-                   generator=torch.Generator().manual_seed(cfg.seed),
-                   device=dev)
+                      channel_scale=cfg.channel_scale, remat=cfg.remat,
+                      prune_pad=cfg.prune_pad, fused_block1=fb1,
+                      generator=torch.Generator().manual_seed(cfg.seed),
+                      device=dev)
 
     start_epoch = start_iteration = 0
     best_mean_iu = 0.0
@@ -205,15 +247,20 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
                                                      vgg16_path))
     elif not synthetic and cfg.mode == "train":
         # the reference starts fresh runs from caffe-VGG16
-        # (train.py:127-129); the port reads a local copy only
+        # (train.py:127-129), fetched and md5-checked on first use
         default_vgg = osp.join(data_dir, "models", "vgg16_from_caffe.pth")
+        if not osp.exists(default_vgg):
+            err = _fetch(lambda: cached_download_vgg16(data_dir), mesh)
+            if err is not None:
+                logger.stdout(f"WARNING: VGG16 auto-download failed "
+                              f"({err!r}; see {_PROVISIONING})")
         if osp.exists(default_vgg):
             logger.stdout(f"initializing backbone from {default_vgg}")
             model.load_state_dict(load_vgg16_into_params(
                 model.state_dict(), default_vgg))
         else:
             logger.stdout(
-                "WARNING: no --vgg16 given and no "
+                "WARNING: no --vgg16 given and no cached "
                 f"{default_vgg}; the backbone is RANDOMLY INITIALIZED — the "
                 "reference always starts from pretrained VGG16 "
                 "(train.py:127-129) and results will not be comparable")
@@ -255,6 +302,7 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
             # seenmask, or a resumed run that never improved) it falls back
             # to the loaded checkpoint, as the reference's `if not checkpoint`
             best_path = osp.join(log_dir, "best")
+            ckpt.finish_pending(mesh)
             if ckpt.checkpoint_exists(best_path):
                 best = ckpt.restore_checkpoint(best_path, model.state_dict(),
                                                mesh=mesh)
@@ -289,6 +337,9 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
         summary["mean_iu"] = fcn_trainer.validate(both_fcn_and_seenmask=False)
     elif cfg.mode == "test_all":
         summary["mean_iu"] = fcn_trainer.validate(both_fcn_and_seenmask=True)
+    # routine saves overlap training; every file is on disk before the run
+    # returns (a caller may read or delete the log directory at once)
+    ckpt.finish_pending(mesh)
     logger.close()
     return summary
 
@@ -363,7 +414,7 @@ def _parse_args(argv=None):
     p.add_argument("--channel_scale", type=float, default=None,
                    help="backbone width multiplier (<1 for smoke tests)")
     p.add_argument("--remat", action="store_true",
-                   help="rematerialize conv blocks (not ported: raises)")
+                   help="rematerialize conv blocks (larger train batches)")
     p.add_argument("--no_prune_pad", action="store_true",
                    help="disable support-pruned pad-100 blocks (exact fast "
                         "path, on by default)")

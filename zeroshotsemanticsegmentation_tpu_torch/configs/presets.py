@@ -4,13 +4,11 @@
 Preset ids and hyperparameters mirror reference configs.py (ids 1, 2, 4,
 14-19); validation mirrors train.py:232-251, the run name train.py:253-286.
 
-Two readings differ from the JAX package, both about the device:
-
-* `fused_block1` and `fused_eval` keep their values, but "auto" means "the
-  model is on a CUDA device" (the card's kernels), where the JAX package
-  reads "the backend is a TPU".
-* `data_parallel` or `model_parallel` above 1 raises NotImplementedError:
-  multi-device runs are ROADMAP.md queue 1 item 8.
+One reading differs from the JAX package, about the device: `fused_block1`
+and `fused_eval` keep their values, but "auto" means "the model is on a
+CUDA device" (the card's kernels), where the JAX package reads "the backend
+is a TPU". `data_parallel` x `model_parallel` above 1 is a mesh run, one
+process per rank (`cli/train.py`, `parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -57,7 +55,7 @@ class Config:
     max_train_images: int = 0              # 0 => dataset default budget
     num_viz: int = 25                      # reference trainer_fcn.py:204
     channel_scale: float = 1.0             # <1: thin model (tests only)
-    remat: bool = False                    # rematerialization: not ported
+    remat: bool = False                    # rematerialized conv blocks
     prune_pad: bool = True                 # support-pruned pad-100 blocks
     chunked_loss: bool = False             # per-sample loss (big batches)
     grad_accum: int = 1                    # microbatches per step

@@ -28,12 +28,17 @@
 //   zss_decode_label       : one PNG/MAT -> remapped int32 HW in a bucket
 //   zss_load_batch         : N pairs, float32/int32, decoded in parallel
 //   zss_load_batch_compact : N pairs, uint8 RGB/int8, decoded in parallel
+//   zss_set_device         : the CUDA device of this thread's batches (nvJPEG)
 //   zss_build_info         : the toolchain this library was built with
 // All functions return 0 on success, negative error codes otherwise:
 // -1 unreadable or undecodable file, -2 larger than the bucket (a label's
 // size is reported all the same, so a caller can retry), -3 MAT
 // without a Segmentation matrix, -4 unknown label format, -5 label value
-// outside int8, -6 out of memory, -7 any other exception.
+// outside int8, -6 out of memory, -7 any other exception, -8 the decode
+// device cannot be set (nvJPEG: no such ordinal, or cudaSetDevice failed).
+// With nvJPEG every JPEG decodes on a pool thread bound to the device the
+// calling thread named (zss_set_device), never on whatever card a fresh
+// thread starts on.
 
 #include <algorithm>
 #include <atomic>
@@ -50,6 +55,7 @@
 
 #if defined(ZSS_JPEG_NVJPEG)
 #include <cuda_runtime.h>
+#include <map>
 #include <mutex>
 #include <nvjpeg.h>
 #else
@@ -94,38 +100,82 @@ bool read_file(const char* path, std::vector<uint8_t>* buf) {
 
 #if defined(ZSS_JPEG_NVJPEG)
 
-// nvJPEG: one library handle; decoder contexts (a JPEG state, a
-// non-blocking stream, so a decode never waits on the training stream, and
-// a device buffer) are kept on a free list and reused by whichever pool
-// thread takes one, for the life of the process.
+// nvJPEG, per CUDA device: one library handle and a free list of decoder
+// contexts (a JPEG state, a non-blocking stream, so a decode never waits on
+// the training stream, and a device buffer), created on that device and
+// reused by whichever pool thread of a batch on that device takes one, for
+// the life of the process. A pool thread binds its batch's device
+// (`bind_thread_device`) before it touches nvJPEG or a stream, so a context
+// is never used on another card than the one it was made on.
 struct NvContext {
+  int device = -1;
   nvjpegJpegState_t state = nullptr;
   cudaStream_t stream = nullptr;
   uint8_t* dbuf = nullptr;
   size_t cap = 0;
 };
 
-std::once_flag g_nv_once;
-nvjpegHandle_t g_nv_handle = nullptr;
-std::mutex g_nv_mu;
-std::vector<NvContext*> g_nv_free;
+struct NvDevice {
+  bool tried = false;
+  nvjpegHandle_t handle = nullptr;
+  std::vector<NvContext*> free;
+};
 
-NvContext* acquire_context() {
-  std::call_once(g_nv_once, [] {
-    if (nvjpegCreateSimple(&g_nv_handle) != NVJPEG_STATUS_SUCCESS)
-      g_nv_handle = nullptr;
-  });
-  if (!g_nv_handle) return nullptr;
-  {
-    std::lock_guard<std::mutex> lock(g_nv_mu);
-    if (!g_nv_free.empty()) {
-      NvContext* ctx = g_nv_free.back();
-      g_nv_free.pop_back();
-      return ctx;
-    }
+std::mutex g_nv_mu;
+std::map<int, NvDevice> g_nv_devices;
+// the device of the process's latest nvJPEG decode (zss_build_info)
+std::atomic_int g_last_device{-1};
+// the device the calling thread's batches decode on (zss_set_device; -1:
+// the thread's current device when a batch starts), and the device a pool
+// thread is bound to (bind_thread_device)
+thread_local int t_feed_device = -1;
+thread_local int t_bound_device = -1;
+
+// The ordinal a batch started on this thread decodes on, -1 when there is
+// none to be had.
+int feed_device() {
+  int d = t_feed_device;
+  if (d < 0 && cudaGetDevice(&d) != cudaSuccess) return -1;
+  return d;
+}
+
+// Makes `ordinal` this thread's device for nvJPEG; -8 where it cannot be.
+int bind_thread_device(int ordinal) {
+  if (ordinal < 0 || cudaSetDevice(ordinal) != cudaSuccess) return -8;
+  t_bound_device = ordinal;
+  return 0;
+}
+
+int set_feed_device(int ordinal) {
+  int count = 0;
+  if (ordinal < -1 ||
+      (ordinal >= 0 && (cudaGetDeviceCount(&count) != cudaSuccess ||
+                        ordinal >= count)))
+    return -8;
+  t_feed_device = ordinal;
+  return 0;
+}
+
+NvContext* acquire_context(nvjpegHandle_t* handle) {
+  int device = t_bound_device;
+  if (device < 0) return nullptr;  // never on an unbound thread
+  std::lock_guard<std::mutex> lock(g_nv_mu);
+  NvDevice& d = g_nv_devices[device];
+  if (!d.tried) {
+    d.tried = true;
+    if (nvjpegCreateSimple(&d.handle) != NVJPEG_STATUS_SUCCESS)
+      d.handle = nullptr;
+  }
+  if (!d.handle) return nullptr;
+  *handle = d.handle;
+  if (!d.free.empty()) {
+    NvContext* ctx = d.free.back();
+    d.free.pop_back();
+    return ctx;
   }
   auto* ctx = new NvContext;
-  if (nvjpegJpegStateCreate(g_nv_handle, &ctx->state) !=
+  ctx->device = device;
+  if (nvjpegJpegStateCreate(d.handle, &ctx->state) !=
           NVJPEG_STATUS_SUCCESS ||
       cudaStreamCreateWithFlags(&ctx->stream, cudaStreamNonBlocking) !=
           cudaSuccess) {
@@ -138,7 +188,7 @@ NvContext* acquire_context() {
 
 void release_context(NvContext* ctx) {
   std::lock_guard<std::mutex> lock(g_nv_mu);
-  g_nv_free.push_back(ctx);
+  g_nv_devices[ctx->device].free.push_back(ctx);
 }
 
 // libjpeg's colour space for a three-component image (jdapimin.c's
@@ -246,13 +296,14 @@ struct YccTables {
 
 uint8_t clamp255(int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); }
 
-bool nv_decode(NvContext* ctx, const std::vector<uint8_t>& data,
-               std::vector<uint8_t>* out, int* h, int* w) {
+bool nv_decode(nvjpegHandle_t handle, NvContext* ctx,
+               const std::vector<uint8_t>& data, std::vector<uint8_t>* out,
+               int* h, int* w) {
   static const YccTables ycc;
   int comps = 0;
   nvjpegChromaSubsampling_t subsampling;
   int widths[NVJPEG_MAX_COMPONENT], heights[NVJPEG_MAX_COMPONENT];
-  if (nvjpegGetImageInfo(g_nv_handle, data.data(), data.size(), &comps,
+  if (nvjpegGetImageInfo(handle, data.data(), data.size(), &comps,
                          &subsampling, widths, heights) !=
       NVJPEG_STATUS_SUCCESS)
     return false;
@@ -308,7 +359,7 @@ bool nv_decode(NvContext* ctx, const std::vector<uint8_t>& data,
       image.pitch[c] = size_t(widths[1]);
     }
   }
-  if (nvjpegDecode(g_nv_handle, ctx->state, data.data(), data.size(),
+  if (nvjpegDecode(handle, ctx->state, data.data(), data.size(),
                    format, &image, ctx->stream) != NVJPEG_STATUS_SUCCESS)
     return false;
   std::vector<uint8_t> host(need);
@@ -344,20 +395,26 @@ bool decode_jpeg_rgb(const char* path, std::vector<uint8_t>* out,
                      int* h, int* w) {
   std::vector<uint8_t> data;
   if (!read_file(path, &data) || data.empty()) return false;
-  NvContext* ctx = acquire_context();
+  nvjpegHandle_t handle = nullptr;
+  NvContext* ctx = acquire_context(&handle);
   if (!ctx) return false;
   bool ok;
   try {
-    ok = nv_decode(ctx, data, out, h, w);
+    ok = nv_decode(handle, ctx, data, out, h, w);
   } catch (...) {
     release_context(ctx);
     throw;
   }
   release_context(ctx);
+  g_last_device = ctx->device;
   return ok;
 }
 
 #else  // libjpeg
+
+int feed_device() { return -1; }
+int bind_thread_device(int) { return 0; }
+int set_feed_device(int) { return 0; }
 
 struct JpegErr {
   jpeg_error_mgr mgr;
@@ -875,17 +932,20 @@ int decode_label_i8_impl(const char* path, int8_t* out, int bucket_h,
   return 0;
 }
 
-// Runs decode(i) for i in [0, n) on up to num_threads threads; the first
-// failing sample's code, in sample order, or 0.
+// Runs decode(i) for i in [0, n) on up to num_threads threads, each bound
+// to the calling thread's feed device before its first decode (nvJPEG); the
+// first failing sample's code, in sample order, or 0.
 template <typename F>
 int run_pool(int n, int num_threads, F decode) {
   if (num_threads < 1) num_threads = 1;
   std::vector<int> status(n, 0);
   std::atomic_int next_idx{0};
+  const int device = feed_device();
   auto worker = [&]() {
+    const int bound = bind_thread_device(device);
     for (int i = next_idx.fetch_add(1); i < n; i = next_idx.fetch_add(1)) {
       // guarded: an exception escaping a std::thread terminates the process
-      status[i] = guarded([&] { return decode(i); });
+      status[i] = bound != 0 ? bound : guarded([&] { return decode(i); });
     }
   };
   int threads = std::min(num_threads, n);
@@ -904,11 +964,21 @@ int run_pool(int n, int num_threads, F decode) {
 
 extern "C" {
 
+// On a pool thread of its own, as a batch's images are: the JPEG decodes
+// on the feed device and the calling thread's device stays as it was.
 int zss_decode_image(const char* path, float* out, int bucket_h, int bucket_w,
                      int* size_hw) {
-  return guarded([&] {
+  return run_pool(1, 1, [&](int) {
     return decode_image_impl(path, out, bucket_h, bucket_w, size_hw);
   });
+}
+
+// The CUDA device the calling thread's later batches decode on (nvJPEG):
+// an ordinal, or -1 for the thread's current device when a batch starts.
+// -8 for an ordinal the machine does not have. The libjpeg backend ignores
+// it.
+int zss_set_device(int ordinal) {
+  return guarded([&] { return set_feed_device(ordinal); });
 }
 
 int zss_decode_label(const char* path, int32_t* out, int bucket_h,
@@ -980,8 +1050,11 @@ int zss_build_info(char* buf, int n) {
          std::to_string(major) + "." + std::to_string(minor) + "." +
          std::to_string(patch) + "\", \"jpeg_lib_version\": null, " +
          "\"libjpeg_turbo\": null, ";
+    int last = g_last_device;
+    s += "\"device\": " + (last < 0 ? std::string("null")
+                                     : std::to_string(last)) + ", ";
 #else
-    s += "\"jpeg\": \"libjpeg\", \"jpeg_version\": null, "
+    s += "\"jpeg\": \"libjpeg\", \"jpeg_version\": null, \"device\": null, "
          "\"jpeg_lib_version\": " + std::to_string(JPEG_LIB_VERSION) + ", ";
 #if defined(LIBJPEG_TURBO_VERSION)
     s += "\"libjpeg_turbo\": \"" ZSS_STR(LIBJPEG_TURBO_VERSION) "\", ";

@@ -17,6 +17,13 @@ goes through libjpeg where the compiler finds `jpeglib.h`, else through
 nvJPEG from the CUDA toolkit (`$CUDA_HOME`, default /usr/local/cuda); PNG
 and MAT labels through the library's own readers over zlib.
 
+With nvJPEG the JPEGs of a batch decode on the CUDA device the caller
+names (`load_batch(..., device=ordinal)`, the device the loader feeds: a
+rank's own card on a mesh); every pool thread binds it before its first
+nvJPEG call, and an ordinal that cannot be set raises. `build_info()`'s
+"device" is the ordinal of the process's latest nvJPEG decode. The libjpeg
+backend ignores the device.
+
 Unlike the JAX binding, which reports a missing library as
 `available() == False` and lets its callers decode with PIL, a build that
 fails raises with the compiler's output: a loader asked for the native
@@ -150,6 +157,8 @@ class NativeLoader:
             fn.argtypes = batch_args
         lib.zss_build_info.restype = ctypes.c_int
         lib.zss_build_info.argtypes = [ctypes.c_char_p, ctypes.c_int]
+        lib.zss_set_device.restype = ctypes.c_int
+        lib.zss_set_device.argtypes = [ctypes.c_int]
 
     @classmethod
     def get(cls) -> "NativeLoader":
@@ -162,7 +171,9 @@ class NativeLoader:
 
     def build_info(self) -> dict:
         """The toolchain the library was built with (compiler, JPEG
-        backend and version, PNG reader, zlib)."""
+        backend and version, PNG reader, zlib) and "device", the CUDA
+        ordinal of the latest nvJPEG decode (None before the first and with
+        libjpeg)."""
         buf = ctypes.create_string_buffer(1024)
         rc = self._lib.zss_build_info(buf, len(buf))
         if rc != 0:
@@ -170,6 +181,16 @@ class NativeLoader:
         return json.loads(buf.value.decode())
 
     # ------------------------------------------------------------------
+
+    def set_device(self, device: int | None) -> None:
+        """The CUDA ordinal this thread's later decodes run on (nvJPEG);
+        None: the thread's current device when a decode starts. Raises for
+        an ordinal the machine does not have."""
+        ordinal = -1 if device is None else int(device)
+        rc = self._lib.zss_set_device(ordinal)
+        if rc != 0:
+            raise RuntimeError(f"zss_set_device({ordinal}) failed rc={rc}: "
+                               "the decoder cannot run on that device")
 
     def decode_image(self, path: str, bucket_hw: tuple[int, int]
                      ) -> tuple[np.ndarray, tuple[int, int]]:
@@ -202,14 +223,15 @@ class NativeLoader:
     def load_batch(self, image_paths: list[str], label_paths: list[str],
                    bucket_hw: tuple[int, int], *, value_offset: int = 0,
                    map255_to_ignore: bool = True, num_threads: int = 4,
-                   compact: bool = False, out=None
+                   compact: bool = False, out=None, device: int | None = None
                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """compact=True: uint8 RGB images + int8 labels (device-side
         normalization, 4x fewer feed bytes). `out`, optional: the
         (images, labels, sizes) arrays to decode into, C-contiguous, one
         row a path, of the dtypes the call returns (the loader passes
         views of pinned buffers); a label slot whose path is None is
-        filled with -1."""
+        filled with -1. `device`: the CUDA ordinal nvJPEG decodes on (as
+        in `set_device`)."""
         n = len(image_paths)
         if len(label_paths) != n:
             # a shorter list would silently pad the ctypes array with NULLs,
@@ -236,6 +258,7 @@ class NativeLoader:
             for i, p in enumerate(label_paths):
                 if not p:
                     labels[i] = -1
+        self.set_device(device)
         img_arr = (ctypes.c_char_p * n)(*[p.encode() for p in image_paths])
         lbl_arr = (ctypes.c_char_p * n)(
             *[p.encode() if p else None for p in label_paths])

@@ -16,6 +16,8 @@ arrays; the trainers copy them to the card
 (`train.trainer_fcn.prefetch_to_device`). With `pin_memory` the native
 decoder writes into pinned host tensors, carried in the batch under
 "pinned" (the arrays are views of them), which the copy takes as they are.
+With `device` (the CUDA device the loader feeds, a rank's own card on a
+mesh) the producer thread runs on that card and nvJPEG decodes there.
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ class BatchLoader:
     without it), False decodes in Python. A native build that fails
     raises. `decoder` says which one was taken. `pin_memory` (set when the
     loader feeds a card): the native decoder writes each batch into pinned
-    host tensors."""
+    host tensors. `device`: the device the batches go to; a CUDA device is
+    the producer thread's current device and the one nvJPEG decodes on."""
 
     def __init__(self, dataset, batch_size: int, *,
                  bucket_hw: tuple[int, int] = DEFAULT_BUCKET,
@@ -58,7 +61,8 @@ class BatchLoader:
                  drop_remainder: bool = False,
                  num_threads: int = 4, prefetch: int = 2,
                  use_native: bool | None = None,
-                 compact: bool = False, pin_memory: bool = False):
+                 compact: bool = False, pin_memory: bool = False,
+                 device: torch.device | str | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.bucket_hw = bucket_hw
@@ -70,6 +74,13 @@ class BatchLoader:
         self.epoch = 0
         self.compact = compact
         self.pin_memory = pin_memory
+        device = None if device is None else torch.device(device)
+        # the card's ordinal (None off the card); an index-less "cuda" is
+        # the constructing thread's current card
+        self.cuda_ordinal = None
+        if device is not None and device.type == "cuda":
+            self.cuda_ordinal = (device.index if device.index is not None
+                                 else torch.cuda.current_device())
         self._native = None
         if use_native and not hasattr(dataset, "native_label_kwargs"):
             raise RuntimeError(
@@ -157,7 +168,7 @@ class BatchLoader:
             [self.dataset.label_path(d) for d in ids], self.bucket_hw,
             num_threads=self.num_threads, compact=self.compact,
             out=tuple(arrays[k][:n] for k in ("image", "label", "sizes")),
-            **label_kwargs)
+            device=self.cuda_ordinal, **label_kwargs)
         # pad with all-ignore dummies (static shapes)
         arrays["image"][n:] = 0
         arrays["label"][n:] = PAD_LABEL
@@ -195,6 +206,10 @@ class BatchLoader:
             # any decode error must reach the consumer: a dead producer with
             # no sentinel would deadlock the training loop
             try:
+                if self.cuda_ordinal is not None:
+                    # a new thread starts on card 0: its pinned buffers and
+                    # decodes belong to the fed card
+                    torch.cuda.set_device(self.cuda_ordinal)
                 if self._native is not None:
                     loader, kwargs = self._native
                     for chunk in chunks:

@@ -25,6 +25,15 @@ the explicit `torch.Generator` `g`; without `train` there is no dropout.
 2's frozen backbone: no backbone backward is built, and block 1 takes its
 no-gradient kernel).
 
+`remat=True` rematerializes the conv blocks in the backward, with the JAX
+modules' segments: the support-pruned run is one segment (its
+`jax.checkpoint`), each later block one more (`nn.remat`); a segment keeps
+only its input for the backward and runs its forward again there
+(`torch.utils.checkpoint`, non-reentrant). Only where autograd records:
+serving, eval, the frozen trunk and the height-sharded bands are unchanged.
+No random draw lies inside a segment (dropout follows fc6), so the RNG
+state is not stashed.
+
 On a mesh (`parallel.mesh.shard_model` sets `mesh` and splits fc6 / fc7)
 the forward runs this rank's rows with fc6 on its output-channel shard
 (input through `copy_to_model`: its gradient is all-reduced over 'model')
@@ -44,6 +53,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from zeroshotsemanticsegmentation_tpu_torch import resolve_device
 from zeroshotsemanticsegmentation_tpu_torch.models.pruned import (
@@ -101,13 +111,15 @@ class VGGTrunk(nn.Module):
 
     def __init__(self, num_classes: int, *, dtype=torch.float32,
                  dropout_rate: float = 0.5, channel_scale: float = 1.0,
-                 prune_pad: bool = True, fused_block1: bool = False,
+                 remat: bool = False, prune_pad: bool = True,
+                 fused_block1: bool = False,
                  device: str | torch.device = "cuda"):
         super().__init__()
         device = resolve_device(device)
         self.num_classes = num_classes
         self.dtype = dtype
         self.channel_scale = channel_scale
+        self.remat = remat
         self.prune_pad = prune_pad
         self.fused_block1 = fused_block1
         in_f = 3
@@ -162,13 +174,37 @@ class VGGTrunk(nn.Module):
         conv = getattr(self, name)
         return conv.weight, conv.bias
 
+    def _segment(self, fn, *args):
+        """fn(*args), rematerialized in the backward when `remat` is set
+        and autograd records."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(*args)
+
+    def _block(self, h: torch.Tensor, bi: int, bands=None) -> torch.Tensor:
+        """VGG block `bi` (its convs + ReLU, then the ceil-mode pool) on
+        NCHW `h`; with `bands` on this rank's rows."""
+        on_bands = bands is not None and bands.conv_on_bands(bi)
+        for ci, (name, _) in enumerate(_VGG_BLOCKS[bi]):
+            if on_bands:  # rows from the neighbours, zero columns
+                h = torch.relu(self._conv(name, bands.rows3x3(h, 2), (0, 1)))
+                continue
+            pad = _PAD_CONV1 if (bi == 0 and ci == 0) else 1
+            h = torch.relu(self._conv(name, h, pad))
+        h = F.max_pool2d(h, 2, 2, ceil_mode=True)
+        if bands is not None:
+            h = bands.settle(h, bi + 1, dim=2)
+        return h
+
     def _blocks(self, x: torch.Tensor, bands=None) -> dict:
         """VGG blocks 1-5 on the (B, H, W, 3) image -> {block index: NCHW
         pool output} for every block it materialises: the last block of
         the support-pruned run (at most `PRUNED_DEPTH` deep) and each block
         after it. With `bands` (`parallel.spatial.Bands`) each is this
         rank's band of rows, or the whole array from the plan's `depth`
-        on."""
+        on. Without bands, the pruned run and each later block are the
+        `remat` segments."""
         in_h, in_w = x.shape[1], x.shape[2]
         pools = {}
         start = 0
@@ -183,7 +219,8 @@ class VGGTrunk(nn.Module):
         elif self.prune_pad and prunable(in_h, in_w):
             for nb in range(self.PRUNED_DEPTH, 2, -1):
                 if plan_blocks(in_h, in_w, _PAD_CONV1, nb):
-                    h = run_pruned_blocks(
+                    h = self._segment(
+                        run_pruned_blocks,
                         block_weights(self._weight_bias, nb), x,
                         _PAD_CONV1, self.dtype, self.fused_block1)
                     start = nb
@@ -193,17 +230,8 @@ class VGGTrunk(nn.Module):
             h = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
                 memory_format=torch.channels_last)
         for bi in range(start, len(_VGG_BLOCKS)):
-            on_bands = bands is not None and bands.conv_on_bands(bi)
-            for ci, (name, _) in enumerate(_VGG_BLOCKS[bi]):
-                if on_bands:  # rows from the neighbours, zero columns
-                    h = torch.relu(self._conv(name, bands.rows3x3(h, 2),
-                                              (0, 1)))
-                    continue
-                pad = _PAD_CONV1 if (bi == 0 and ci == 0) else 1
-                h = torch.relu(self._conv(name, h, pad))
-            h = F.max_pool2d(h, 2, 2, ceil_mode=True)
-            if bands is not None:
-                h = bands.settle(h, bi + 1, dim=2)
+            h = (self._block(h, bi, bands) if bands is not None
+                 else self._segment(self._block, h, bi))
             pools[bi] = h
         return pools
 
@@ -264,12 +292,14 @@ class FCN32s(VGGTrunk):
 
     def __init__(self, num_classes: int, *, dtype=torch.float32,
                  dropout_rate: float = 0.5, channel_scale: float = 1.0,
-                 prune_pad: bool = True, fused_block1: bool = False,
+                 remat: bool = False, prune_pad: bool = True,
+                 fused_block1: bool = False,
                  generator: torch.Generator | None = None,
                  device: str | torch.device = "cuda"):
         super().__init__(num_classes, dtype=dtype, dropout_rate=dropout_rate,
-                         channel_scale=channel_scale, prune_pad=prune_pad,
-                         fused_block1=fused_block1, device=device)
+                         channel_scale=channel_scale, remat=remat,
+                         prune_pad=prune_pad, fused_block1=fused_block1,
+                         device=device)
         self.seenmask_upscore = nn.ConvTranspose2d(
             2, 2, _UPSAMPLE_KERNEL, stride=_UPSAMPLE_STRIDE, bias=False,
             device=self.fc6.weight.device)

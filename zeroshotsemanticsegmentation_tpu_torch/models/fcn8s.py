@@ -14,8 +14,9 @@ head keeps the coarse x32 path with a FIXED bilinear upsample, so the model
 has no `seenmask_upscore` and stage 2 trains `seenmask_score` alone.
 
 The trunk is FCN-32s's (`models.fcn32s.VGGTrunk`: the same module names,
-init, dropout, fc6/fc7 ops and fused block 1), with the support-pruned run
-at most 3 blocks deep: the full virtual pool3 it returns is the skip tap.
+init, dropout, fc6/fc7 ops, fused block 1 and `remat` segments), with the
+support-pruned run at most 3 blocks deep: the full virtual pool3 it returns
+is the skip tap.
 There is no mode="raw": the fcn head fuses pool3/pool4 at several
 resolutions, so there is no pre-upsample head pair for the fused serving
 kernel, and serving takes the unfused full-resolution route.
@@ -57,12 +58,14 @@ class FCN8s(VGGTrunk):
 
     def __init__(self, num_classes: int, *, dtype=torch.float32,
                  dropout_rate: float = 0.5, channel_scale: float = 1.0,
-                 prune_pad: bool = True, fused_block1: bool = False,
+                 remat: bool = False, prune_pad: bool = True,
+                 fused_block1: bool = False,
                  generator: torch.Generator | None = None,
                  device: str | torch.device = "cuda"):
         super().__init__(num_classes, dtype=dtype, dropout_rate=dropout_rate,
-                         channel_scale=channel_scale, prune_pad=prune_pad,
-                         fused_block1=fused_block1, device=device)
+                         channel_scale=channel_scale, remat=remat,
+                         prune_pad=prune_pad, fused_block1=fused_block1,
+                         device=device)
         dev = self.fc6.weight.device
         self.score_pool3 = nn.Conv2d(self.width(256), num_classes, 1,
                                      device=dev)

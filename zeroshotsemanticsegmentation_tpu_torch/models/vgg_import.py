@@ -8,8 +8,9 @@ linear layers (25088 -> 4096, 4096 -> 4096) are viewed as 7x7 / 1x1 convs
 the two views. The caffe-lineage weights expect BGR input with the mean
 subtracted, which is what the data pipeline produces.
 
-The loader takes a local ``.pth`` path or a ``{key: tensor}`` mapping; it
-never downloads (the JAX package's models/pretrained.py is not ported).
+The loader takes a local ``.pth`` path or a ``{key: tensor}`` mapping and
+downloads nothing itself; `models.pretrained.cached_download_vgg16` fetches
+the file (the train CLI calls it for a fresh run without ``--vgg16``).
 """
 
 from __future__ import annotations

@@ -27,18 +27,35 @@ An FCN-8s run writes the same dict with ``arch: "FCN8s"``: its
 and ``score_pool4.*``, with no upscore weights (`ref_export.fcn8s_state_dict`),
 and its optimizer state has FCN-8s's parameter groups.
 
+Saves overlap training, as the JAX package's do (its `_save_one`,
+`finish_pending`): a save first waits for the previous one, then copies
+every tensor to the CPU before it returns (the next optimizer step updates
+the weights and Adam's moments in place). A routine save
+(``is_best=False``) hands ``torch.save`` and the rename to one background
+writer thread and returns; a best save writes in the caller's thread, then
+links ``best``. `finish_pending()` waits for the save in flight and raises
+its writer's exception, if it had one (a writer error is never lost: the
+next save, which calls it first, raises it). It runs at exit, and
+`restore_checkpoint` and `checkpoint_exists` call it for a path inside a
+log directory with a save in flight; a caller that reads the file any
+other way calls it first.
+
 On a mesh (`parallel.mesh`) a save gathers fc6 / fc7 and their optimizer
 moments over 'model' on every rank, rank 0 alone writes the same file a
-one-device run writes, and every rank then waits at a barrier, so no rank
-reads or links a file rank 0 is still writing. A restore reads the full
-file on every rank and keeps this rank's shards.
+one-device run writes (it owns the writer), and every rank then waits at a
+barrier, so no rank reads or links a file rank 0 is still linking.
+`finish_pending(mesh)` waits for rank 0's writer and then meets every rank
+at a barrier; the exit hook is local (the process group may be gone). A
+restore reads the full file on every rank and keeps this rank's shards.
 """
 
 from __future__ import annotations
 
+import atexit
 import os
 import os.path as osp
 import shutil
+import threading
 from typing import Mapping
 
 import torch
@@ -63,6 +80,59 @@ def _to_cpu(obj):
     return obj
 
 
+# the save in flight: {"thread", "dir", "error"}, or None
+_pending: dict | None = None
+
+
+def finish_pending(mesh=None) -> None:
+    """Waits until the save in flight (if any) is on disk, and raises the
+    exception its writer raised. With `mesh`, every rank then meets at a
+    barrier (rank 0 owns the writer)."""
+    global _pending
+    pending, _pending = _pending, None
+    if pending is not None:
+        pending["thread"].join()
+        if pending["error"] is not None:
+            raise pending["error"]
+    if mesh is not None:
+        dist.barrier()
+
+
+# a process that exits with a save in flight still leaves a whole file
+atexit.register(finish_pending)
+
+
+def _write(blob: dict, path: str) -> None:
+    torch.save(blob, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
+def _start_writer(blob: dict, path: str) -> None:
+    """Writes `blob` to `path` on the background writer thread."""
+    global _pending
+    pending = {"dir": osp.dirname(path), "error": None}
+
+    def run():
+        try:
+            _write(blob, path)
+        except BaseException as e:  # noqa: BLE001 — raised by finish_pending
+            pending["error"] = e
+
+    pending["thread"] = threading.Thread(target=run, name="checkpoint-writer",
+                                         daemon=True)
+    _pending = pending
+    pending["thread"].start()
+
+
+def _finish_for(path: str) -> None:
+    """finish_pending() when `path` lies inside the directory of the save
+    in flight."""
+    pending = _pending
+    if pending is not None and (path == pending["dir"] or path.startswith(
+            pending["dir"] + os.sep)):
+        finish_pending()
+
+
 def _link_copy(src: str, dst: str) -> None:
     """`dst` becomes a hard link to `src` (a copy where the file system has
     no hard links), replacing what was there."""
@@ -82,11 +152,14 @@ def save_checkpoint(log_dir: str, *, model_state: Mapping[str, torch.Tensor],
                     upscore_trained: bool = False, mesh=None,
                     optim_param_names=None) -> None:
     """Write ``<log_dir>/checkpoint`` and, when `is_best`, link ``best``
-    to it. `model_state` is the port's FCN32s or FCN8s state dict (told
-    apart by the skip heads), `optim_state` an optimizer's
-    ``state_dict()``. With `mesh`, every rank calls it with its shards;
-    `optim_param_names` (`parallel.mesh.opt_param_names`) names the
-    optimizer's parameters, None for a state without TP shards."""
+    to it; a routine save returns once its tensors are copied to the CPU
+    and writes the file in the background (`finish_pending`). `model_state`
+    is the port's FCN32s or FCN8s state dict (told apart by the skip
+    heads), `optim_state` an optimizer's ``state_dict()``. With `mesh`,
+    every rank calls it with its shards; `optim_param_names`
+    (`parallel.mesh.opt_param_names`) names the optimizer's parameters,
+    None for a state without TP shards."""
+    finish_pending()  # the previous save lands (or raises) first
     if mesh is not None:
         model_state = gather_params(model_state, mesh)
         if optim_param_names is not None:
@@ -113,10 +186,12 @@ def save_checkpoint(log_dir: str, *, model_state: Mapping[str, torch.Tensor],
     base = osp.abspath(log_dir)
     os.makedirs(base, exist_ok=True)
     path = osp.join(base, "checkpoint")
-    torch.save(blob, path + ".tmp")
-    os.replace(path + ".tmp", path)
-    if is_best:
-        _link_copy(path, osp.join(base, "best"))
+    if not is_best:
+        _start_writer(blob, path)
+        return
+    # the link needs the whole file: a best save blocks
+    _write(blob, path)
+    _link_copy(path, osp.join(base, "best"))
 
 
 def restore_checkpoint(path: str,
@@ -130,6 +205,7 @@ def restore_checkpoint(path: str,
     holds this rank's shards, and so do the merged fc6 / fc7; `opt_state`
     stays full (`parallel.mesh.shard_opt_state` shards it)."""
     path = osp.abspath(path)
+    _finish_for(path)
     if mesh is None or params is None:
         return load_reference_checkpoint(path, params)
     # full-shape stand-ins (no memory: expanded zeros) for the shape check
@@ -147,4 +223,6 @@ def restore_checkpoint(path: str,
 
 
 def checkpoint_exists(path: str) -> bool:
-    return osp.isfile(osp.abspath(path))
+    path = osp.abspath(path)
+    _finish_for(path)
+    return osp.isfile(path)
