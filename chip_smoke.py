@@ -208,7 +208,19 @@ Phases, each of which passes or ends the script with a non-zero exit:
    and its resume; (e) a routine checkpoint save's return time and its
    `finish_pending` beside a blocking save, the files equal; (f)
    `build_info()["device"]` after nvJPEG decodes. The kernels line adds
-   K3-K6's remat launches.
+   K3-K6's remat launches;
+26. parity evidence on the card (`phase_parity`): (a)
+   scripts/torch_parity_evidence.py's bf16 drift: the full-width bf16
+   FCN-32s trained 12 stage-1 steps at B=8, 512x512 (K3-K6 at least once a
+   step), then 4 x 8 images served through the production predictor (K2,
+   K1 at least once a call), through K1 and K2's plain versions and in
+   fp32 (unpruned, TF32 off): the kernels' label flips vs fp32 at most 2x
+   the plain versions', the metric |delta|s logged; (b) the context-59
+   label tool (scripts/torch_make_context59_labels.py) on seeded `.mat`
+   fixtures through its CLI and `convert` with `import PIL` failing, its
+   PNGs read back through the native decoder and `PascalContext(n_classes=
+   59)` equal to the remap, and whether Pillow is importable here. The
+   kernels line adds K1-K6's launches there.
 
 The script reaches no network: `urllib.request.urlretrieve` raises in it,
 so the train CLI's VGG16 fetch of a fresh real-data run (phase 24 (f))
@@ -3396,6 +3408,124 @@ def phase_remat(dev, embed, tmp: str, log, require) -> dict:
     return out
 
 
+PARITY_GEOMETRY = dict(batches=4, batch_size=8, size=512, train_steps=12)
+CONTEXT59_SHAPES = ((375, 500), (333, 500), (17, 9), (1, 1))
+
+
+def context59_checks(tmp: str, log, require) -> dict:
+    """Phase 26 (b): scripts/torch_make_context59_labels.py on seeded
+    fixtures (a labels.txt of the 59 names at scattered raw ids and extras,
+    `.mat` LabelMaps written by scipy.io, compressed and not), through its
+    CLI in a fresh process and through `convert` here with `import PIL`
+    failing; each PNG read back through `NativeLoader.decode_label` and
+    through `PascalContext(n_classes=59)`'s label path, equal pixel for
+    pixel to the remap. Notes whether Pillow is importable here."""
+    import scipy.io
+    from zeroshotsemanticsegmentation_tpu_torch.data.assets import (
+        CONTEXT59_CLASS_NAMES)
+    from zeroshotsemanticsegmentation_tpu_torch.data.context import (
+        PascalContext)
+    from zeroshotsemanticsegmentation_tpu_torch.data.native import (
+        NativeLoader)
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(59)
+    raw_ids = rng.permutation(np.arange(2, 460))[:59]
+    lines = [f"{r}: {n}" for r, n in zip(raw_ids, CONTEXT59_CLASS_NAMES)]
+    lines += ["1: somethingrare", "459: anotherextra"]
+    labels_txt = osp.join(tmp, "labels.txt")
+    with open(labels_txt, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    mat_dir = osp.join(tmp, "trainval")
+    os.makedirs(mat_dir)
+    lut = np.zeros(460, np.int64)
+    lut[raw_ids] = np.arange(1, 60)
+    pool = np.concatenate([raw_ids, [0, 1, 459]])
+    want = {}
+    for i, (h, w) in enumerate(CONTEXT59_SHAPES):
+        raw = pool[rng.randint(0, len(pool), (h, w))].astype(np.uint16)
+        did = f"2008_{i:06d}"
+        scipy.io.savemat(osp.join(mat_dir, f"{did}.mat"), {"LabelMap": raw},
+                         do_compression=bool(i % 2))
+        want[did] = lut[raw]
+    root = osp.join(tmp, "data")
+    out_dir = osp.join(root, "context", "59_context_labels")
+    script = osp.join(ROOT, "scripts", "torch_make_context59_labels.py")
+    cli = subprocess.run([sys.executable, script, "--labels-txt", labels_txt,
+                          "--mat-dir", mat_dir, "--out-dir", out_dir],
+                         capture_output=True, text=True, timeout=300)
+    require(cli.returncode == 0, f"the context-59 tool's CLI failed: "
+            f"{cli.stdout}{cli.stderr}")
+    require(f"wrote {len(want)} 59-class" in cli.stdout,
+            f"the context-59 tool's CLI said: {cli.stdout}")
+    tool = load_script("torch_make_context59_labels")
+    again = osp.join(tmp, "again")
+    with without_pillow():
+        n = tool.convert(labels_txt, mat_dir, again)
+    require(n == len(want), f"convert wrote {n} PNGs for {len(want)} .mat")
+    for did in want:
+        with open(osp.join(out_dir, f"{did}.png"), "rb") as a, \
+                open(osp.join(again, f"{did}.png"), "rb") as b:
+            require(a.read() == b.read(), f"{did}: the CLI's PNG and "
+                    "convert's differ")
+    assets = osp.join(tmp, "assets")
+    os.makedirs(osp.join(assets, "context"))
+    with open(osp.join(assets, "context", "val.txt"), "w") as f:
+        f.write("\n".join(sorted(want)) + "\n")
+    nl = NativeLoader.get()
+    with without_pillow():
+        ds = PascalContext("val", data_dir=root, assets_dir=assets,
+                           n_classes=59)
+        require(ds.ids == sorted(want), f"PascalContext ids {ds.ids}")
+        pixels = 0
+        for did, remap in want.items():
+            lbl, size = nl.decode_label(osp.join(out_dir, f"{did}.png"),
+                                        remap.shape, map255_to_ignore=False)
+            require(tuple(size) == remap.shape
+                    and np.array_equal(lbl, remap),
+                    f"{did}: the native decoder's pixels differ from the "
+                    "remap")
+            require(np.array_equal(ds._scan_label(did), remap - 1),
+                    f"{did}: PascalContext(n_classes=59) reads other labels")
+            pixels += remap.size
+    pil = importlib.util.find_spec("PIL") is not None
+    out = {"files": len(want), "pixels": pixels,
+           "classes_present": int(len(np.unique(np.concatenate(
+               [w.ravel() for w in want.values()])))),
+           "pillow_importable": pil, "seconds": time.perf_counter() - t0}
+    log(f"[context59] {json.dumps(out)}")
+    return out
+
+
+def phase_parity(dev, tmp: str, card: str, log, require) -> dict:
+    """Phase 26: (a) scripts/torch_parity_evidence.py's bf16 drift at
+    PARITY_GEOMETRY (12 trained bf16 steps through K3-K6, then serving
+    through K2 + K1, through their plain versions and in fp32): the serving
+    bf16 bar and the launch counts held; (b) the context-59 tool
+    (`context59_checks`)."""
+    import torch
+    t0 = time.perf_counter()
+    pe = load_script("torch_parity_evidence")
+    r = pe.run_bf16(**PARITY_GEOMETRY, log=lambda m: log(f"[parity] {m}"),
+                    device=str(dev))
+    for msg in r["bar_failures"]:
+        log(f"[parity] bar: {msg}")
+    require(not r["bar_failures"], f"the bf16 drift misses its bar: "
+            f"{r['bar_failures']}")
+    log(f"[parity] {card}: flips vs fp32 kernels "
+        f"{r['flip_rate_kernels']:.5f}, plain {r['flip_rate_plain']:.5f} "
+        f"(ratio {r['flip_ratio']}) over {r['pixels']} pixels")
+    for g, d in r["metrics"].items():
+        log(f"[parity] {card}: {g} |delta| vs fp32 kernels "
+            f"{d['abs_delta_kernels']}, plain {d['abs_delta_plain']}")
+    torch.cuda.empty_cache()
+    ctx = context59_checks(tmp, log, require)
+    out = {"bf16": r, "context59": ctx,
+           "seconds": time.perf_counter() - t0}
+    log(f"[parity] phase 26: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -4500,6 +4630,18 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         p25 = phase_remat(dev, embed, tmp, log, require)
 
+    # ---- 26. the bf16 drift on trained weights, the context-59 tool ------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        p26 = phase_parity(dev, tmp, card, log, require)
+    l26 = p26["bf16"]["launches"]
+
+    def launches26(key: str) -> dict:
+        """One kernel's launches on phase 26's drift study: its training
+        steps (K3-K6) or its kernels' serving run (K1, K2)."""
+        part = "serve_kernels" if key in l26["serve_kernels"] else "train"
+        return {"launches_parity": l26[part][key]}
+
     def launches25(key: str) -> dict:
         """One kernel's launches on phase 25's remat paths: one step of
         each variant (plain, remat), and the train CLI's run with --remat
@@ -4552,6 +4694,7 @@ def main() -> None:
          "launches_train_cli": cli_launches["szn_fused"],
          **launches21("szn_fused"), **launches22("szn_fused"),
          **launches23("szn_fused"), **launches25("szn_fused"),
+         **launches26("szn_fused"),
          "band": p23["k1_band"],
          "launches_eval": evals["k1_launches"], "max_abs_err": k1_maxerr,
          "flip_rate": k1_flips, "flip_rate_k33": k33_flips,
@@ -4567,6 +4710,7 @@ def main() -> None:
          "launches_train_cli": cli_launches["block1_fused"],
          **launches21("block1_fused"), **launches22("block1_fused"),
          **launches23("block1_fused"), **launches25("block1_fused"),
+         **launches26("block1_fused"),
          "band": p23["k2_band"],
          "max_abs_err": k2_bf16_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
@@ -4585,6 +4729,7 @@ def main() -> None:
          "launches_train_cli": cli_launches["block1_train_fwd"],
          **launches21("block1_train_fwd"), **launches22("block1_train_fwd"),
          **launches25("block1_train_fwd"),
+         **launches26("block1_train_fwd"),
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": k3_lib_ms,
@@ -4601,6 +4746,7 @@ def main() -> None:
          "launches_train_cli": cli_launches["block1_train_bwd"],
          **launches21("block1_train_bwd"), **launches22("block1_train_bwd"),
          **launches25("block1_train_bwd"),
+         **launches26("block1_train_bwd"),
          "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": k4_lib_ms,
@@ -4620,6 +4766,7 @@ def main() -> None:
          "launches_train_cli": cli_launches["costail_fwd"],
          **launches21("costail_fwd"), **launches22("costail_fwd"),
          **launches25("costail_fwd"),
+         **launches26("costail_fwd"),
          "max_abs_err": tail_errs[20][0], "ms": tail20["k5_ms"],
          "device_ms": tail20["k5_device_ms"],
          "bound_share": tail20["k5_share"],
@@ -4649,6 +4796,7 @@ def main() -> None:
          "launches_train_cli": cli_launches["costail_bwd"],
          **launches21("costail_bwd"), **launches22("costail_bwd"),
          **launches25("costail_bwd"),
+         **launches26("costail_bwd"),
          "max_abs_err": tail_errs[20][1], "ms": tail20["k6_ms"],
          "device_ms": tail20["k6_device_ms"],
          "bound_share": tail20["k6_share"],
@@ -4755,7 +4903,21 @@ def main() -> None:
         f"{p25['save']['routine_return_s']:.3f} s vs "
         f"{p25['save']['blocking_s']:.3f} s blocking; phase 25 "
         f"{p25['seconds']:.1f} s")
-    log(json.dumps({"kernels": kernels, "decoder": decoder, "remat": remat}))
+    b16 = p26["bf16"]
+    parity = {k: b16[k] for k in (
+        "flip_rate_kernels", "flip_rate_plain", "flip_ratio", "pixels",
+        "train_steps", "launches")}
+    parity["metrics_abs_delta_kernels"] = {
+        g: d["abs_delta_kernels"] for g, d in b16["metrics"].items()}
+    parity["context59"] = p26["context59"]
+    log(f"[parity] {card}: bf16 flips vs fp32 "
+        f"{b16['flip_rate_kernels']:.5f} (plain "
+        f"{b16['flip_rate_plain']:.5f}); context-59 tool "
+        f"{p26['context59']['files']} files equal; Pillow importable: "
+        f"{p26['context59']['pillow_importable']}; phase 26 "
+        f"{p26['seconds']:.1f} s")
+    log(json.dumps({"kernels": kernels, "decoder": decoder, "remat": remat,
+                    "parity": parity}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
