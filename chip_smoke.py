@@ -221,6 +221,21 @@ Phases, each of which passes or ends the script with a non-zero exit:
    PNGs read back through the native decoder and `PascalContext(n_classes=
    59)` equal to the remap, and whether Pillow is importable here. The
    kernels line adds K1-K6's launches there.
+27. the measurement programs (`phase_bench`): the bench's serving, train
+   and loop modes (`zeroshotsemanticsegmentation_tpu_torch.bench`), the
+   trained-gate serving bench and the stage-2 step bench
+   (scripts/torch_bench_trained_gate.py, torch_bench_seenmask_step.py),
+   each at its real shapes with its warm and timed run, in this process:
+   each one's launches of K1-K6 (serving K1 and K2 once a chain step,
+   train and loop K3-K6 once a step, the trained gate K1 three times and
+   K2 twice a step over its two chains, stage 2 K2 once a step), finite
+   non-zero checksums, 0 < mfu < 1.05, peak memory above 0, and no host
+   sync in the timed chains (each timed under the sync debug mode "error",
+   which raises here on a fetch); then the ratchet
+   (scripts/torch_bench_gate.py) in fresh processes on a temporary record
+   directory: the first run writes the record (rc 0), the second passes
+   (rc 0), a record forged at 10x fails it (rc 1). Prints the five lines;
+   the kernels line adds K1-K6's launches there.
 
 The script reaches no network: `urllib.request.urlretrieve` raises in it,
 so the train CLI's VGG16 fetch of a fresh real-data run (phase 24 (f))
@@ -3526,6 +3541,123 @@ def phase_parity(dev, tmp: str, card: str, log, require) -> dict:
     return out
 
 
+BENCH_KERNELS = ("szn_fused", "block1_fused", "block1_train_fwd",
+                 "block1_train_bwd", "costail_fwd", "costail_bwd")
+GATE_TIMEOUT_S = 300
+
+
+def phase_bench(dev, tmp: str, card: str, log, require) -> dict:
+    """Phase 27: the measurement programs at their real shapes (the bench's
+    three modes, the trained-gate and stage-2 benches), their launches,
+    checksums, mfu and peak memory, with no host sync in a timed chain;
+    then the ratchet in fresh processes on a temporary record directory."""
+    import torch
+    from zeroshotsemanticsegmentation_tpu_torch import bench
+    from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels, dotpolicy
+    t0 = time.perf_counter()
+    tg = load_script("torch_bench_trained_gate")
+    s2 = load_script("torch_bench_seenmask_step")
+    # the timed chains' guard must be live on this torch: a fetch raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.ones(1, device=dev).item()
+        guard_raises = False
+    except RuntimeError:
+        guard_raises = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    require(guard_raises, "set_sync_debug_mode('error') let a fetch pass: "
+            "the timed chains' sync check would prove nothing")
+    programs = {"serving": bench.bench_inference, "train": bench.bench_train,
+                "loop": bench.bench_train_loop, "trained_gate": tg.run,
+                "stage2": s2.run}
+    lines, launches, seconds = {}, {}, {}
+    dotpolicy.set_dot_free(False)
+    try:
+        for name, fn in programs.items():
+            torch.cuda.empty_cache()
+            _kernels.reset_launch_counts()
+            t = time.perf_counter()
+            try:
+                lines[name] = fn(dev)
+            except RuntimeError as e:
+                fail(f"phase 27: the {name} program failed (a host sync in "
+                     f"a timed chain raises): {e}")
+            seconds[name] = time.perf_counter() - t
+            launches[name] = {k: _kernels.launch_counts[k]
+                              for k in BENCH_KERNELS}
+            log(json.dumps(lines[name]))
+    finally:
+        dotpolicy.set_dot_free(None)
+    # K1-K6's launches in each program's warm and timed runs
+    k3_k6 = dict.fromkeys(BENCH_KERNELS[2:], 0)
+    want = {name: {**dict.fromkeys(BENCH_KERNELS, 0), **counts} for name,
+            counts in (
+                ("serving", {"szn_fused": 2 * bench.CHAIN,
+                             "block1_fused": 2 * bench.CHAIN}),
+                ("train", {k: 2 * bench.TRAIN_CHAIN for k in k3_k6}),
+                ("loop", {k: 2 * bench.LOOP_BATCHES for k in k3_k6}),
+                # pristine: one K1 pass a step; trained: two
+                ("trained_gate", {"szn_fused": 2 * 3 * tg.CHAIN,
+                                  "block1_fused": 2 * 2 * tg.CHAIN}),
+                ("stage2", {"block1_fused": 2 * s2.CHAIN}))}
+    require(launches == want, f"phase 27 launches {launches}, want {want}")
+    checksums = [lines[n]["checksum"]
+                 for n in ("serving", "train", "loop", "stage2")]
+    checksums += [lines["trained_gate"][k]
+                  for k in ("checksum_pristine", "checksum_trained")]
+    require(all(np.isfinite(c) and c != 0 for c in checksums),
+            f"phase 27 checksums {checksums}")
+    require(0 < lines["train"]["mfu"] < 1.05,
+            f"stage-1 mfu {lines['train']['mfu']}")
+    require(all(lines[n]["peak_gb"] > 0
+                for n in ("serving", "train", "loop", "stage2")),
+            "phase 27 peak memory")
+    require(all(line["card"] == card for line in lines.values()),
+            f"phase 27 card lines {[v['card'] for v in lines.values()]}")
+
+    # the ratchet: a fresh process each, the bench in another under it
+    gate = osp.join(ROOT, "scripts", "torch_bench_gate.py")
+    rec_dir = osp.join(tmp, "records")
+    record = osp.join(rec_dir, "record_serving.json")
+
+    def run_gate():
+        return subprocess.run([sys.executable, gate, "--record-dir", rec_dir],
+                              capture_output=True, text=True, cwd=ROOT,
+                              timeout=GATE_TIMEOUT_S)
+
+    t = time.perf_counter()
+    first = run_gate()
+    require(first.returncode == 0 and osp.exists(record),
+            f"the gate's first run (no record): rc {first.returncode}\n"
+            f"{first.stdout}{first.stderr}")
+    with open(record) as f:
+        rec = json.load(f)
+    second = run_gate()
+    require(second.returncode == 0, f"the gate against its own record: rc "
+            f"{second.returncode}\n{second.stdout}{second.stderr}")
+    with open(record, "w") as f:
+        json.dump(dict(rec, value=10 * rec["value"]), f)
+    forged = run_gate()
+    require(forged.returncode == 1 and "REGRESSION" in forged.stderr,
+            f"the gate against a record forged at 10x: rc "
+            f"{forged.returncode}\n{forged.stdout}{forged.stderr}")
+    seconds["gate"] = time.perf_counter() - t
+    out = {"lines": lines, "launches": launches, "seconds": seconds,
+           "gate": {"record_mp_s": rec["value"],
+                    "rcs": [first.returncode, second.returncode,
+                            forged.returncode]},
+           "phase_seconds": time.perf_counter() - t0}
+    log(f"[bench] {card}: serving {lines['serving']['value']:.2f} MP/s, "
+        f"stage 1 {lines['train']['value']:.2f} img/s (mfu "
+        f"{lines['train']['mfu']:.4f}), loop {lines['loop']['value']:.2f} "
+        f"img/s, trained gate {lines['trained_gate']['trained_over_pristine']:.4f}"
+        f"x pristine, stage 2 {lines['stage2']['step_ms']:.2f} ms a step; "
+        f"gate rcs {out['gate']['rcs']}; phase 27 "
+        f"{out['phase_seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -4636,6 +4768,17 @@ def main() -> None:
         p26 = phase_parity(dev, tmp, card, log, require)
     l26 = p26["bf16"]["launches"]
 
+    # ---- 27. the measurement programs and the ratchet --------------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        p27 = phase_bench(dev, tmp, card, log, require)
+
+    def launches27(key: str) -> dict:
+        """One kernel's launches on phase 27's programs (warm and timed
+        runs)."""
+        return {"launches_bench": {name: counts[key] for name, counts in
+                                   p27["launches"].items()}}
+
     def launches26(key: str) -> dict:
         """One kernel's launches on phase 26's drift study: its training
         steps (K3-K6) or its kernels' serving run (K1, K2)."""
@@ -4695,6 +4838,7 @@ def main() -> None:
          **launches21("szn_fused"), **launches22("szn_fused"),
          **launches23("szn_fused"), **launches25("szn_fused"),
          **launches26("szn_fused"),
+         **launches27("szn_fused"),
          "band": p23["k1_band"],
          "launches_eval": evals["k1_launches"], "max_abs_err": k1_maxerr,
          "flip_rate": k1_flips, "flip_rate_k33": k33_flips,
@@ -4711,6 +4855,7 @@ def main() -> None:
          **launches21("block1_fused"), **launches22("block1_fused"),
          **launches23("block1_fused"), **launches25("block1_fused"),
          **launches26("block1_fused"),
+         **launches27("block1_fused"),
          "band": p23["k2_band"],
          "max_abs_err": k2_bf16_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
@@ -4730,6 +4875,7 @@ def main() -> None:
          **launches21("block1_train_fwd"), **launches22("block1_train_fwd"),
          **launches25("block1_train_fwd"),
          **launches26("block1_train_fwd"),
+         **launches27("block1_train_fwd"),
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": k3_lib_ms,
@@ -4747,6 +4893,7 @@ def main() -> None:
          **launches21("block1_train_bwd"), **launches22("block1_train_bwd"),
          **launches25("block1_train_bwd"),
          **launches26("block1_train_bwd"),
+         **launches27("block1_train_bwd"),
          "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": k4_lib_ms,
@@ -4767,6 +4914,7 @@ def main() -> None:
          **launches21("costail_fwd"), **launches22("costail_fwd"),
          **launches25("costail_fwd"),
          **launches26("costail_fwd"),
+         **launches27("costail_fwd"),
          "max_abs_err": tail_errs[20][0], "ms": tail20["k5_ms"],
          "device_ms": tail20["k5_device_ms"],
          "bound_share": tail20["k5_share"],
@@ -4797,6 +4945,7 @@ def main() -> None:
          **launches21("costail_bwd"), **launches22("costail_bwd"),
          **launches25("costail_bwd"),
          **launches26("costail_bwd"),
+         **launches27("costail_bwd"),
          "max_abs_err": tail_errs[20][1], "ms": tail20["k6_ms"],
          "device_ms": tail20["k6_device_ms"],
          "bound_share": tail20["k6_share"],
@@ -4917,7 +5066,9 @@ def main() -> None:
         f"{p26['context59']['pillow_importable']}; phase 26 "
         f"{p26['seconds']:.1f} s")
     log(json.dumps({"kernels": kernels, "decoder": decoder, "remat": remat,
-                    "parity": parity}))
+                    "parity": parity,
+                    "bench": {k: p27[k] for k in ("lines", "seconds",
+                                                  "gate")}}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
