@@ -1,5 +1,4 @@
-"""The port's run logger, step timer, log buffer and viz vs the JAX
-package's."""
+"""The port's run logger, log buffer and viz vs the JAX package's."""
 
 import dataclasses
 import os.path as osp
@@ -12,13 +11,12 @@ import yaml
 from zeroshotsemanticsegmentation_tpu import viz as jviz
 from zeroshotsemanticsegmentation_tpu.configs import PRESETS as JPRESETS
 from zeroshotsemanticsegmentation_tpu.utils import RunLogger as JRunLogger
-from zeroshotsemanticsegmentation_tpu.utils import StepTimer as JStepTimer
 from zeroshotsemanticsegmentation_tpu_torch import viz as pviz
 from zeroshotsemanticsegmentation_tpu_torch.configs import PRESETS
 from zeroshotsemanticsegmentation_tpu_torch.train.trainer_fcn import (
     StepLogBuffer)
 from zeroshotsemanticsegmentation_tpu_torch.utils import (
-    RunLogger, StepTimer, profile_trace)
+    RunLogger, profile_trace)
 from zeroshotsemanticsegmentation_tpu_torch.utils.logging import dump_yaml
 
 torch.set_num_threads(1)
@@ -95,23 +93,6 @@ def test_logger_channels_without_tensorboard(tmp_path, capsys):
     log.stdout("hello")
     log.close()
     assert capsys.readouterr().out == "hello\n"
-
-
-def test_step_timer_summary_equals_jax(monkeypatch):
-    ticks = iter([0.0, 0.5, 1.0, 1.25, 2.0, 2.125, 3.0, 4.0])
-    jt, pt = JStepTimer(items_per_step=24, pixels_per_step=24 * 512 * 512), \
-        StepTimer(items_per_step=24, pixels_per_step=24 * 512 * 512)
-    times = list(ticks)
-    for t in (jt, pt):
-        it = iter(times)
-        monkeypatch.setattr("time.perf_counter", lambda: next(it))
-        for _ in range(4):
-            t.tic()
-            t.toc()
-    assert pt.summary() == jt.summary()
-    assert pt.num_steps == 4
-    pt.reset()
-    assert pt.num_steps == 0
 
 
 def test_profile_trace_writes_a_trace(tmp_path):

@@ -41,6 +41,7 @@ from zeroshotsemanticsegmentation_tpu_torch.models import FCN8s, FCN32s
 from zeroshotsemanticsegmentation_tpu_torch.models.ref_import import (
     is_reference_checkpoint, load_reference_checkpoint)
 from zeroshotsemanticsegmentation_tpu_torch.serving import make_szn_predictor
+from zeroshotsemanticsegmentation_tpu_torch.utils.profiling import span
 from zeroshotsemanticsegmentation_tpu_torch.viz import label2rgb
 
 _IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
@@ -110,22 +111,31 @@ def predict_arrays(predict, images, *, bucket, batch_size: int,
     `batch_size` with zero images so one static shape serves them all, and
     each image's int32 (h, w) labels are cropped back. An image larger than
     the bucket raises before anything of its batch is predicted; `names`
-    label the images in that message."""
+    label the images in that message. Each batch is one `serve.request`
+    span (`utils.profiling`) counting its images' own pixels and the
+    pixels computed."""
     bh, bw = bucket
     names = names or [f"image {i}" for i in range(len(images))]
     out = []
     for i in range(0, len(images), batch_size):
         chunk = images[i:i + batch_size]
-        batch = np.zeros((batch_size, bh, bw, 3), np.uint8)
-        for j, img in enumerate(chunk):
-            if img.shape[0] > bh or img.shape[1] > bw:
-                raise ValueError(
-                    f"{names[i + j]}: {img.shape[:2]} exceeds the bucket "
-                    f"{(bh, bw)} — raise it with --bucket")
-            batch[j, :img.shape[0], :img.shape[1]] = img
-        labels = predict(torch.from_numpy(batch)).cpu().numpy()
-        out.extend(lb[:img.shape[0], :img.shape[1]]
-                   for img, lb in zip(chunk, labels))
+        with span("serve.request", images=len(chunk),
+                  real_px=sum(img.shape[0] * img.shape[1] for img in chunk),
+                  computed_px=batch_size * bh * bw):
+            with span("serve.pad"):
+                batch = np.zeros((batch_size, bh, bw, 3), np.uint8)
+                for j, img in enumerate(chunk):
+                    if img.shape[0] > bh or img.shape[1] > bw:
+                        raise ValueError(
+                            f"{names[i + j]}: {img.shape[:2]} exceeds the "
+                            f"bucket {(bh, bw)} — raise it with --bucket")
+                    batch[j, :img.shape[0], :img.shape[1]] = img
+            labels = predict(torch.from_numpy(batch))
+            with span("serve.d2h"):
+                labels = labels.cpu().numpy()
+            with span("serve.crop"):
+                out.extend(lb[:img.shape[0], :img.shape[1]]
+                           for img, lb in zip(chunk, labels))
     return out
 
 

@@ -67,6 +67,7 @@ from zeroshotsemanticsegmentation_tpu_torch.ops.conv7x7 import (
     conv_valid_mmgrad)
 from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
     copy_to_model, reduce_from_model)
+from zeroshotsemanticsegmentation_tpu_torch.utils.profiling import span
 
 _PAD_CONV1 = 100
 _UPSAMPLE_STRIDE = 32
@@ -159,13 +160,21 @@ class VGGTrunk(nn.Module):
     def _fc(self, name: str, h: torch.Tensor) -> torch.Tensor:
         """fc6 (7x7) or a 1x1 layer (fc7 and the heads) through its
         matmul-gradient op, + bias in the compute dtype; on a mesh fc6 and
-        fc7 are its TP layers."""
+        fc7 are its TP layers. fc6's product is the `model.fc6` span
+        (`utils.profiling`), counting the operations it is given."""
         conv = getattr(self, name)
         mesh = self.mesh
-        if mesh is not None and name == "fc6":
-            h = copy_to_model(h, mesh)
-        op = conv_valid_mmgrad if name == "fc6" else conv1x1_mmwgrad
-        y = op(h, conv.weight.to(self.dtype))
+        w = conv.weight.to(self.dtype)
+        if name == "fc6":
+            if mesh is not None:
+                h = copy_to_model(h, mesh)
+            co, ci, kh, kw = w.shape
+            b, _, ih, iw = h.shape
+            with span("model.fc6", device=True, flops=2 * b * co * ci * kh
+                      * kw * (ih - kh + 1) * (iw - kw + 1)):
+                y = conv_valid_mmgrad(h, w)
+        else:
+            y = conv1x1_mmwgrad(h, w)
         if mesh is not None and name == "fc7":
             y = reduce_from_model(y, mesh)
         return y + conv.bias.to(self.dtype)[:, None, None]

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from zeroshotsemanticsegmentation_tpu_torch.ops import block1_fused
+from zeroshotsemanticsegmentation_tpu_torch.utils.profiling import span
 
 # the preferred depth (through pool4), and FCN-8s's (through pool3, the
 # array its skip head taps)
@@ -55,23 +56,26 @@ def _zero_input_response(k: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def _padc(a: torch.Tensor, c: torch.Tensor, top: int, bottom: int,
           left: int, right: int) -> torch.Tensor:
     """Pad the spatial dims of NCHW `a` with the per-channel constant c, by
-    concatenation (pad(a - c) + c would perturb interior values)."""
+    concatenation (pad(a - c) + c would perturb interior values): one
+    `model.ringpad` span (`utils.profiling`) counting the bytes written."""
     b, ch, h, w = a.shape
-    c = c.to(a.dtype)[None, :, None, None]
+    with span("model.ringpad", device=True, bytes=a.element_size() * b * ch
+              * (h + top + bottom) * (w + left + right)):
+        c = c.to(a.dtype)[None, :, None, None]
 
-    def band(hh, ww):
-        return c.expand(b, ch, hh, ww)
+        def band(hh, ww):
+            return c.expand(b, ch, hh, ww)
 
-    if left or right:
-        parts = ([band(h, left)] if left else []) + [a] + \
-            ([band(h, right)] if right else [])
-        a = torch.cat(parts, dim=3)
-        w += left + right
-    if top or bottom:
-        parts = ([band(top, w)] if top else []) + [a] + \
-            ([band(bottom, w)] if bottom else [])
-        a = torch.cat(parts, dim=2)
-    return a
+        if left or right:
+            parts = ([band(h, left)] if left else []) + [a] + \
+                ([band(h, right)] if right else [])
+            a = torch.cat(parts, dim=3)
+            w += left + right
+        if top or bottom:
+            parts = ([band(top, w)] if top else []) + [a] + \
+                ([band(bottom, w)] if bottom else [])
+            a = torch.cat(parts, dim=2)
+        return a
 
 
 def _expand_dim(p: torch.Tensor, dim: int, out_len: int, lo: int = 0,

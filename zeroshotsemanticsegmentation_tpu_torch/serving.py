@@ -43,6 +43,7 @@ from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
     shard_params)
 from zeroshotsemanticsegmentation_tpu_torch.parallel.spatial import (
     Bands, plan_bands)
+from zeroshotsemanticsegmentation_tpu_torch.utils.profiling import span
 
 _UPSCORE_KEY = "seenmask_upscore.weight"
 
@@ -138,22 +139,8 @@ def make_szn_predictor(model: torch.nn.Module,
     unseen_vec_dev = torch.as_tensor(unseen_vec, device=dev)
     upscore_w = state.get(_UPSCORE_KEY)
 
-    @torch.inference_mode()
-    def predict(images, bands=None) -> torch.Tensor:
-        """Labels of `images`; with `bands` this rank's rows of them."""
-        images = prepare_images(torch.as_tensor(images, device=dev))
-        rows = None if bands is None else bands.out_rows()
-        if not raw_heads:
-            f_full, s_full = model(images, mode="both", bands=bands)
-            return infer_labels_szn(f_full.to(torch.float32),
-                                    s_full.to(torch.float32), embed,
-                                    unseen_vec_dev)
-        if int8:
-            f_raw, s_raw = quantized_raw_forward(state, images, mesh=mesh,
-                                                 bands=bands)
-        else:
-            f_raw, s_raw = model(images, mode="raw", bands=bands)
-        out_hw = (images.shape[1], images.shape[2])
+    def labels(f_raw, s_raw, out_hw, rows) -> torch.Tensor:
+        """Labels from the raw heads (FCN32s)."""
         if not upscore_trained:
             return infer_labels_szn_fused(f_raw, s_raw, embed, unseen_vec,
                                           out_hw, rows)
@@ -173,6 +160,29 @@ def make_szn_predictor(model: torch.nn.Module,
         unseen_lbl = infer_labels_szn_fused(f_raw, always_unseen, embed,
                                             unseen_vec, out_hw, rows)
         return torch.where(pixel_unseen, unseen_lbl, seen_lbl)
+
+    @torch.inference_mode()
+    def predict(images, bands=None) -> torch.Tensor:
+        """Labels of `images`; with `bands` this rank's rows of them."""
+        with span("serve.h2d", device=True):
+            images = prepare_images(torch.as_tensor(images, device=dev))
+        rows = None if bands is None else bands.out_rows()
+        if not raw_heads:
+            with span("model.forward", device=True):
+                f_full, s_full = model(images, mode="both", bands=bands)
+            with span("serve.labels", device=True):
+                return infer_labels_szn(f_full.to(torch.float32),
+                                        s_full.to(torch.float32), embed,
+                                        unseen_vec_dev)
+        with span("model.forward", device=True):
+            if int8:
+                f_raw, s_raw = quantized_raw_forward(state, images, mesh=mesh,
+                                                     bands=bands)
+            else:
+                f_raw, s_raw = model(images, mode="raw", bands=bands)
+        with span("serve.labels", device=True):
+            return labels(f_raw, s_raw, (images.shape[1], images.shape[2]),
+                          rows)
 
     if mesh is None:
         return predict

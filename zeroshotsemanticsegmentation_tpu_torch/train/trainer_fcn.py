@@ -27,6 +27,7 @@ joins the checkpoint's gathers and barrier.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import os.path as osp
 from collections import deque
@@ -45,7 +46,7 @@ from zeroshotsemanticsegmentation_tpu_torch.train.state import TrainState
 from zeroshotsemanticsegmentation_tpu_torch.train.steps import (
     make_fcn_eval_step, make_fcn_train_step, make_szn_eval_step)
 from zeroshotsemanticsegmentation_tpu_torch.utils.profiling import (
-    profile_trace)
+    profile_trace, span)
 from zeroshotsemanticsegmentation_tpu_torch.viz import (
     get_tile_image, save_image, visualize_segmentation)
 
@@ -239,15 +240,34 @@ class StepLogBuffer:
     def flush(self) -> None:
         if not self._pending:
             return
-        pending, self._pending = self._pending, []
-        rows = torch.stack([row for _, _, row in pending]).cpu().numpy()
-        for (meta, layout, _), row in zip(pending, rows):
-            aux, at = {}, 0
-            for k, shape in layout:
-                n = int(np.prod(shape))
-                aux[k] = row[at:at + n].reshape(shape)
-                at += n
-            self._emit(meta, aux)
+        with span("train.log_flush"):
+            pending, self._pending = self._pending, []
+            rows = torch.stack([row for _, _, row in pending]).cpu().numpy()
+            for (meta, layout, _), row in zip(pending, rows):
+                aux, at = {}, 0
+                for k, shape in layout:
+                    n = int(np.prod(shape))
+                    aux[k] = row[at:at + n].reshape(shape)
+                    at += n
+                self._emit(meta, aux)
+
+
+def traced_steps(feed):
+    """(batch index, (host batch, device batch)) of each batch of `feed`.
+    The caller's loop body runs inside that step's `train.step` span
+    (`utils.profiling`), whose `train.feed` child is the host's wait for
+    the batch: the loader's queue, then the copy's start. The wait that
+    finds the feed exhausted ends a last `train.step` with no `images`."""
+    feed = iter(feed)
+    for batch_idx in itertools.count():
+        with span("train.step") as step:
+            with span("train.feed"):
+                item = next(feed, None)
+            if item is None:
+                return
+            if step is not None:
+                step.work["images"] = item[1]["image"].shape[0]
+            yield batch_idx, item
 
 
 class FCNTrainer:
@@ -365,21 +385,22 @@ class FCNTrainer:
         it0 = self.state.step
         buf = StepLogBuffer(cfg.log_flush_steps, self._emit_train_row)
         with contextlib.ExitStack() as profiling:
-            for batch_idx, (_, dbatch) in enumerate(feed):
-                # optional torch.profiler window (step 0 skipped: warm-up)
-                if (cfg.profile_steps and self.epoch == 0
-                        and batch_idx == 1 and log.enabled):
-                    profiling.enter_context(
-                        profile_trace(osp.join(log.log_dir, "profile")))
+            for batch_idx, (_, dbatch) in traced_steps(feed):
                 gen = step_generator(self._generator, cfg.seed,
                                      self.state.step)
                 self.state, aux = self._train_step(self.state, dbatch, gen)
-                if batch_idx == cfg.profile_steps:
-                    profiling.close()
-                if batch_idx % cfg.log_interval:
-                    continue
-                buf.push((self.epoch, batch_idx, it0 + batch_idx,
-                          log.elapsed_seconds), aux)
+                if batch_idx % cfg.log_interval == 0:
+                    buf.push((self.epoch, batch_idx, it0 + batch_idx,
+                              log.elapsed_seconds), aux)
+                # optional torch.profiler window over steps 1 to
+                # profile_steps (step 0 is warm-up), opened at the end of
+                # step 0 so that step 1's spans start inside it
+                if cfg.profile_steps and self.epoch == 0 and log.enabled:
+                    if batch_idx == 0:
+                        profiling.enter_context(
+                            profile_trace(osp.join(log.log_dir, "profile")))
+                    elif batch_idx == cfg.profile_steps:
+                        profiling.close()
         buf.flush()
         if cfg.data_echo == "auto" and echo_feed.last_stats:
             s = echo_feed.last_stats

@@ -40,7 +40,7 @@ from zeroshotsemanticsegmentation_tpu_torch.train.steps import (
     make_seenmask_eval_step, make_seenmask_train_step)
 from zeroshotsemanticsegmentation_tpu_torch.train.trainer_fcn import (
     _METRIC_NAMES, TRAIN_HEADERS, StepLogBuffer, echo_feed,
-    prefetch_to_device, step_generator, val_headers, viz_rows)
+    prefetch_to_device, step_generator, traced_steps, val_headers, viz_rows)
 from zeroshotsemanticsegmentation_tpu_torch.viz import (
     get_tile_image, save_image, visualize_seenmask)
 
@@ -107,7 +107,7 @@ class SeenmaskTrainer:
                 else prefetch_to_device(self.train_loader, self.device))
         it0 = self.state.step
         buf = StepLogBuffer(cfg.log_flush_steps, self._emit_train_row)
-        for batch_idx, (_, dbatch) in enumerate(feed):
+        for batch_idx, (_, dbatch) in traced_steps(feed):
             gen = step_generator(self._generator, cfg.seed + 1,
                                  self.state.step)
             self.state, aux = self._train_step(self.state, dbatch, gen)

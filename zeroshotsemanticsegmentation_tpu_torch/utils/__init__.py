@@ -1,7 +1,7 @@
-"""Run logging (stdout, CSV, TensorBoard) and step timing."""
+"""Run logging (stdout, CSV, TensorBoard) and tracing."""
 
 from zeroshotsemanticsegmentation_tpu_torch.utils.logging import RunLogger
 from zeroshotsemanticsegmentation_tpu_torch.utils.profiling import (
-    StepTimer, profile_trace)
+    profile_trace)
 
-__all__ = ["RunLogger", "StepTimer", "profile_trace"]
+__all__ = ["RunLogger", "profile_trace"]
