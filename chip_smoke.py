@@ -34,7 +34,7 @@ Phases, each of which passes or ends the script with a non-zero exit:
    reference, and the trained-upscore route; the serving bf16 bar
    (scripts/torch_serving_bar.py): bf16 labels through the kernels at most
    2x as far (flip rate) from the fp32 labels as bf16 labels with block 1
-   through its plain version;
+   through its plain version and fc6's forward on F.conv2d;
 6. times with CUDA events: the predictor at B=64, 512x512, bf16, and each
    kernel at its serving shape beside its plain version and its bound; K1
    also by device time, with its share of the byte bound and of the issue
@@ -63,10 +63,11 @@ Phases, each of which passes or ends the script with a non-zero exit:
    embeddings, the last step with host syncs turned into errors; the
    launch counts of K3-K6 (and none of K2); then one fp32
    step at B=2 through the kernels vs the same step through the plain
-   versions; then the bf16 bar: the same B=2 step in bf16 through the
-   kernels and in bf16 with K3/K4 through their plain versions, each
-   parameter's gradient vs the fp32 step's, the kernels' error at most 2x
-   the plain versions';
+   versions; fc6's forward on its implicit-GEMM kernel once a step; then
+   the bf16 bar: the same B=2 step in bf16 through the kernels and in bf16
+   with K3/K4 through their plain versions and fc6's forward on F.conv2d,
+   each parameter's gradient vs the fp32 step's, the kernels' error at most
+   2x the plain versions';
 10. times with CUDA events: the train step at B=24, 512x512, bf16 (the JAX
    package's bench_train configuration), its peak memory, and K3-K6 at the
    step's shapes beside their plain versions, bounds and library calls
@@ -233,14 +234,23 @@ Phases, each of which passes or ends the script with a non-zero exit:
    each at its real shapes with its warm and timed run, in this process:
    each one's launches of K1-K6 (serving K1 and K2 once a chain step,
    train and loop K3-K6 once a step, the trained gate K1 three times and
-   K2 twice a step over its two chains, stage 2 K2 once a step), finite
+   K2 twice a step over its two chains, stage 2 K2 once a step; fc6's
+   kernel as often as K2 serving and K3 training), finite
    non-zero checksums, 0 < mfu < 1.05, peak memory above 0, and no host
    sync in the timed chains (each timed under the sync debug mode "error",
    which raises here on a fetch); then the ratchet
    (scripts/torch_bench_gate.py) in fresh processes on a temporary record
    directory: the first run writes the record (rc 0), the second passes
    (rc 0), a record forged at 10x fails it (rc 1). Prints the five lines;
-   the kernels line adds K1-K6's launches there.
+   the kernels line adds K1-K6's launches there;
+28. fc6's implicit-GEMM forward alone (`phase_fc6`), bf16, at B=16 and
+   B=24, (B, 512, 23, 23) -> 4096: one launch a call, two calls bit-equal,
+   every output within one bf16 ulp (plus 2^-13 of the output's scale) of
+   the exact product and its error norm at most 1.01x cuDNN's bf16
+   output's; its time beside its bound, cuDNN's
+   F.conv2d and torch.matmul over the materialised patch matrix. Its
+   kernels-line row gathers its launches on the paths of phases 5, 9 and
+   20-27.
 
 The script reaches no network: `urllib.request.urlretrieve` raises in it,
 so the train CLI's VGG16 fetch of a fresh real-data run (phase 24 (f))
@@ -3694,7 +3704,7 @@ def phase_bench(dev, tmp: str, card: str, log, require) -> dict:
     programs = {"serving": bench.bench_inference, "train": bench.bench_train,
                 "loop": bench.bench_train_loop, "trained_gate": tg.run,
                 "stage2": s2.run}
-    lines, launches, seconds = {}, {}, {}
+    lines, launches, fc6, seconds = {}, {}, {}, {}
     dotpolicy.set_dot_free(False)
     try:
         for name, fn in programs.items():
@@ -3709,6 +3719,7 @@ def phase_bench(dev, tmp: str, card: str, log, require) -> dict:
             seconds[name] = time.perf_counter() - t
             launches[name] = {k: _kernels.launch_counts[k]
                               for k in BENCH_KERNELS}
+            fc6[name] = _kernels.launch_counts["conv7x7_igemm"]
             log(json.dumps(lines[name]))
     finally:
         dotpolicy.set_dot_free(None)
@@ -3725,6 +3736,11 @@ def phase_bench(dev, tmp: str, card: str, log, require) -> dict:
                                   "block1_fused": 2 * 2 * tg.CHAIN}),
                 ("stage2", {"block1_fused": 2 * s2.CHAIN}))}
     require(launches == want, f"phase 27 launches {launches}, want {want}")
+    # fc6's forward on its kernel once a trunk forward: as often as K2
+    # serving, K3 training
+    want_fc6 = {name: launches[name]["block1_train_fwd" if name in (
+        "train", "loop") else "block1_fused"] for name in programs}
+    require(fc6 == want_fc6, f"phase 27 fc6 launches {fc6}, want {want_fc6}")
     checksums = [lines[n]["checksum"]
                  for n in ("serving", "train", "loop", "stage2")]
     checksums += [lines["trained_gate"][k]
@@ -3766,7 +3782,8 @@ def phase_bench(dev, tmp: str, card: str, log, require) -> dict:
             f"the gate against a record forged at 10x: rc "
             f"{forged.returncode}\n{forged.stdout}{forged.stderr}")
     seconds["gate"] = time.perf_counter() - t
-    out = {"lines": lines, "launches": launches, "seconds": seconds,
+    out = {"lines": lines, "launches": launches, "launches_fc6": fc6,
+           "seconds": seconds,
            "gate": {"record_mp_s": rec["value"],
                     "rcs": [first.returncode, second.returncode,
                             forged.returncode]},
@@ -3778,6 +3795,100 @@ def phase_bench(dev, tmp: str, card: str, log, require) -> dict:
         f"x pristine, stage 2 {lines['stage2']['step_ms']:.2f} ms a step; "
         f"gate rcs {out['gate']['rcs']}; phase 27 "
         f"{out['phase_seconds']:.1f} s")
+    return out
+
+
+FC6_BATCHES = (16, 24)   # phase 28: fc6 at serving's and training's batch
+FC6_SHAPE = (512, 23, 23, 4096, 7)   # Cin, IH, IW, Cout, kernel (512x512)
+
+
+def phase_fc6(dev, kernels, log, require) -> dict:
+    """Phase 28: fc6's implicit-GEMM forward (`conv7x7_igemm`) alone at
+    B=16 (serving) and B=24 (training), bf16: one launch a call, two calls
+    bit-equal, every output within one bf16 ulp (2^-8 |ref|) plus 2^-13 of
+    the output's scale of the exact (fp64) product, and its relative error
+    norm at most 1.01x cuDNN's bf16 output's (tests/test_torch_cuda.py's
+    bars); its time (CUDA events, device time) beside
+    its bound (operations at the bf16 peak), cuDNN's bf16 F.conv2d and
+    torch.matmul over the materialised bf16 patch matrix (the product
+    alone)."""
+    import torch
+    import torch.nn.functional as F
+    from zeroshotsemanticsegmentation_tpu_torch.ops import conv7x7 as c7
+    t0 = time.perf_counter()
+    ci, ih, iw, co, k = FC6_SHAPE
+    rows = []
+    for batch in FC6_BATCHES:
+        gen = torch.Generator(device=dev).manual_seed(batch)
+        x = torch.randn(batch, ih, iw, ci, device=dev, generator=gen).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+        w = (torch.randn(co, ci, k, k, device=dev, generator=gen)
+             / (ci * k * k) ** 0.5).to(torch.bfloat16)
+        wp = c7.pack_weight(w, torch.bfloat16)
+        require(c7.igemm_route(x, co), "fc6's shape is off the kernel's route")
+        kernels.reset_launch_counts()
+        y = c7.conv7x7_igemm(x, wp)
+        again = c7.conv7x7_igemm(x, wp)
+        torch.cuda.synchronize()
+        launched = kernels.launch_counts["conv7x7_igemm"]
+        km = wp.permute(0, 2, 3, 1).reshape(co, -1)   # a view
+        ref = (c7.patches(x.double(), k, k) @ km.double().t()).view(
+            batch, ih - k + 1, iw - k + 1, co).permute(0, 3, 1, 2)
+        lib = F.conv2d(x, w)
+        bar = 2.0 ** -8 * ref.abs() + 2.0 ** -13 * ref.abs().max()
+        ulp_misses = int(((y.double() - ref).abs() > bar).sum().item())
+        bit_equal = torch.equal(y, again)
+        m = batch * (ih - k + 1) * (iw - k + 1)
+        flops = 2.0 * m * co * ci * k * k
+        b_ms, b_by = bound((x.numel() + wp.numel() + y.numel()) * 2, flops,
+                           PEAK_BF16_FLOP_S)
+        row = {"batch": batch, "shape": [batch, ci, ih, iw, co, k], "m": m,
+               "launches_two_calls": launched, "bit_equal": bit_equal,
+               "ulp_misses": ulp_misses, "rel_vs_fp32": rel(y, ref),
+               "cudnn_rel_vs_fp32": rel(lib, ref), "bound_ms": b_ms,
+               "bound_by": b_by}
+        del y, again, ref, lib, bar
+
+        def kern():
+            return c7.conv7x7_igemm(x, wp)
+
+        def cudnn():
+            return F.conv2d(x, w)
+
+        row["ms"] = time_ms(kern, 10)
+        row["device_ms"] = device_ms(kern, 10, "conv7x7_igemm")
+        row["bound_share"] = b_ms / row["device_ms"]
+        row["library_ms"] = time_ms(cudnn, 3)
+        row["library_device_ms"] = device_ms(cudnn, 3)
+        cols = c7.patches(x, k, k)   # (M, 49 * 512) bf16
+        km = km.t()
+        row["patch_matrix_gb"] = cols.numel() * 2 / 1e9
+        row["patch_matmul_ms"] = time_ms(lambda: torch.matmul(cols, km), 10)
+        row["patch_matmul_device_ms"] = device_ms(
+            lambda: torch.matmul(cols, km), 10)
+        del cols, km, x, w, wp
+        torch.cuda.empty_cache()
+        log(f"[fc6] B={batch}: conv7x7_igemm "
+            f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} "
+            f"({100 * row['bound_share']:.2f}% of its {b_ms:.4f}-ms bound, "
+            f"{b_by}); cuDNN {row['library_ms']:.3f} (device "
+            f"{row['library_device_ms']:.3f}); torch.matmul over the "
+            f"{row['patch_matrix_gb']:.3f}-GB patch matrix "
+            f"{row['patch_matmul_ms']:.4f} (device "
+            f"{row['patch_matmul_device_ms']:.4f}); rel vs fp32 "
+            f"{row['rel_vs_fp32']:.4e} (cuDNN bf16 "
+            f"{row['cudnn_rel_vs_fp32']:.4e}), ulp misses {ulp_misses}, "
+            f"two calls bit-equal {bit_equal}, launches {launched}")
+        require(launched == 2, f"fc6: {launched} launches in two calls")
+        require(bit_equal, f"fc6 B={batch}: two calls differ")
+        require(ulp_misses == 0, f"fc6 B={batch}: {ulp_misses} outputs "
+                "more than one bf16 ulp from the exact product")
+        require(row["rel_vs_fp32"] <= 1.01 * row["cudnn_rel_vs_fp32"],
+                f"fc6 B={batch}: rel {row['rel_vs_fp32']} vs cuDNN's "
+                f"{row['cudnn_rel_vs_fp32']}")
+        rows.append(row)
+    out = {"rows": rows, "seconds": time.perf_counter() - t0}
+    log(f"[fc6] phase 28: {out['seconds']:.1f} s")
     return out
 
 
@@ -3804,6 +3915,7 @@ def main() -> None:
         from zeroshotsemanticsegmentation_tpu_torch.ops import szn_fused as sz
         from zeroshotsemanticsegmentation_tpu_torch.ops import (
             costail_fused as ct)
+        from zeroshotsemanticsegmentation_tpu_torch.ops import conv7x7 as c7
         from zeroshotsemanticsegmentation_tpu_torch.ops import dotpolicy
         from zeroshotsemanticsegmentation_tpu_torch.ops import pdot as pd
         from zeroshotsemanticsegmentation_tpu_torch.ops import rowdot as rd
@@ -3863,9 +3975,12 @@ def main() -> None:
                                   ("szn_labels_kernel",))
     k8_build = kernel_build_stats(_kernels, "conv1_1", (
         "conv1_1_wgmma", "conv1_1_kernel"))
+    fc6_build = kernel_build_stats(_kernels, "conv7x7_igemm",
+                                   ("conv7x7_igemm",))
     for lib, built in (("block1_train", b1_build), ("block1_fused", k2_build),
                        ("pdot", k7_build), ("costail_fused", k56_build),
-                       ("szn_fused", k1_build), ("conv1_1", k8_build)):
+                       ("szn_fused", k1_build), ("conv1_1", k8_build),
+                       ("conv7x7_igemm", fc6_build)):
         for fn, st in built.items():
             log(f"[build] {lib} {fn}: {st}")
     # each bf16 wgmma kernel: HGMMA in its SASS (where cuobjdump exists)
@@ -3876,7 +3991,8 @@ def main() -> None:
             (k8_build, ("conv1_1_wgmma",)),
             (k7_build, ("pdot_tma<256,0>", "pdot_tma<256,1>",
                         "pdot_narrow<8>", "pdot_narrow<16>",
-                        "pdot_narrow<24>"))):
+                        "pdot_narrow<24>")),
+            (fc6_build, ("conv7x7_igemm",))):
         for fn in fns:
             require(fn in built and built[fn].get("hgmma", 1) > 0,
                     f"{fn} is not built with an HGMMA instruction: "
@@ -3889,9 +4005,18 @@ def main() -> None:
 
     @contextlib.contextmanager
     def plain_versions():
-        """Routes the predictor through the kernels' plain versions."""
+        """Routes the predictor through the kernels' plain versions (fc6's
+        forward through F.conv2d)."""
         with mock.patch.object(sz, "szn_labels", sz.szn_labels_plain), \
-                mock.patch.object(b1, "block1_op", b1.block1_plain):
+                mock.patch.object(b1, "block1_op", b1.block1_plain), \
+                fc6_on_conv2d():
+            yield
+
+    @contextlib.contextmanager
+    def fc6_on_conv2d():
+        """Routes fc6's forward through F.conv2d, off its kernel."""
+        with mock.patch.object(c7, "igemm_route",
+                               lambda h, cout: False):
             yield
 
     @contextlib.contextmanager
@@ -4081,7 +4206,8 @@ def main() -> None:
                 torch.int32, f"labels {tuple(o.shape)} for {tuple(r.shape)}")
         require(o.min().item() >= 0 and o.max().item() < k_cls,
                 "a label outside [0, 21)")
-    require(launches["szn_fused"] > 0 and launches["block1_fused"] > 0,
+    require(launches["szn_fused"] > 0 and launches["block1_fused"] > 0
+            and launches["conv7x7_igemm"] > 0,
             f"a kernel was not launched on the main path: {launches}")
     log(f"[slice] classes present in the bf16 labels: "
         f"{sorted(torch.cat([o.flatten() for o in outs]).unique().tolist())}")
@@ -4095,11 +4221,12 @@ def main() -> None:
     # plain version (scripts/torch_serving_bar.py)
     sbar = load_script("torch_serving_bar").run(
         log=lambda m: log(f"[serving bar] {m}"))
-    require(sbar["block1_fused_launches"] > 0,
-            f"the serving bar's kernel run did not launch K2: {sbar}")
+    require(sbar["block1_fused_launches"] > 0
+            and sbar["conv7x7_igemm_launches"] > 0,
+            f"the serving bar's kernel run did not launch K2 and fc6: {sbar}")
     require(sbar["flip_kernels"] <= 2 * sbar["flip_plain"],
             f"bf16 serving flips {sbar['flip_kernels']} vs fp32, more than "
-            f"2x the plain block 1's {sbar['flip_plain']}")
+            f"2x the plain run's {sbar['flip_plain']}")
 
     m32 = model(torch.float32)
     for trained in (False, True):
@@ -4483,6 +4610,8 @@ def main() -> None:
         require(tlaunches[key] > 0, f"{key} was not launched: {tlaunches}")
     require(tlaunches["block1_fused"] == 0,
             f"K2 ran under training: {tlaunches}")
+    require(tlaunches["conv7x7_igemm"] == TRAIN_STEPS,
+            f"fc6's forward not once a step on its kernel: {tlaunches}")
     params_now = dict(tmodel.named_parameters())
     for n, before in watched.items():
         require(not torch.equal(params_now[n].detach(), before),
@@ -4537,12 +4666,13 @@ def main() -> None:
             f"fp32 step gradient {worst} rel {grad_rels[worst]}")
 
     # the bf16 end-to-end bar: the same B=2 step in bf16 through the
-    # kernels and in bf16 with K3/K4 through their plain versions, each
-    # parameter's gradient against the fp32 step's (TF32 off); the kernels
-    # may be at most 2x as far from fp32 as the plain versions, parameter
-    # by parameter
+    # kernels and in bf16 with K3/K4 through their plain versions and fc6's
+    # forward on F.conv2d, each parameter's gradient against the fp32
+    # step's (TF32 off); the kernels may be at most 2x as far from fp32 as
+    # the plain versions, parameter by parameter
     _, grads_bk = b2_step(torch.bfloat16, contextlib.nullcontext())
-    _, grads_bp = b2_step(torch.bfloat16, plain_block1_training())
+    with fc6_on_conv2d():
+        _, grads_bp = b2_step(torch.bfloat16, plain_block1_training())
     torch.cuda.synchronize()
     require(set(grads_bk) == set(grads_k) == set(grads_bp),
             "bf16 gradient sets differ")
@@ -4929,6 +5059,10 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         p27 = phase_bench(dev, tmp, card, log, require)
 
+    # ---- 28. fc6's implicit-GEMM forward alone ----------------------------
+    torch.cuda.empty_cache()
+    p28 = phase_fc6(dev, _kernels, log, require)
+
     def launches27(key: str) -> dict:
         """One kernel's launches on phase 27's programs (warm and timed
         runs)."""
@@ -5118,6 +5252,33 @@ def main() -> None:
                    "wait_group.read before the stage is refilled)",
          "build": {k: v for k, v in k56_build.items()
                    if k.startswith("costail_bwd")}},
+        {"name": "conv7x7_igemm", "route": "cuda",
+         "source": src + "conv7x7_igemm.cu",
+         "replaces": "none (fc6's forward: cuDNN's precomputed sgemm; the "
+                     "JAX package leaves it to XLA)",
+         "launches": launches["conv7x7_igemm"],
+         "launches_train": tlaunches["conv7x7_igemm"],
+         "launches_train_cli": cli_launches["conv7x7_igemm"],
+         **launches21("conv7x7_igemm"), **launches22("conv7x7_igemm"),
+         **launches23("conv7x7_igemm"), **launches25("conv7x7_igemm"),
+         "launches_parity": {part: l26[part]["conv7x7_igemm"]
+                             for part in ("train", "serve_kernels",
+                                          "serve_plain")},
+         "launches_bench": p27["launches_fc6"],
+         **{k: p28["rows"][0][k] for k in (
+             "ms", "device_ms", "bound_ms", "bound_by", "bound_share",
+             "library_ms", "library_device_ms", "patch_matmul_ms",
+             "patch_matmul_device_ms", "rel_vs_fp32",
+             "cudnn_rel_vs_fp32", "shape")},
+         "dtype": "bfloat16", "serving_bar": sbar, "rows": p28["rows"],
+         "design": "implicit GEMM, persistent: one producer warpgroup "
+                   "gathers each tap's 128 pixel rows of 64 channels by "
+                   "cp.async into the 128-byte swizzle and TMA-loads the "
+                   "packed weight's box; two consumer warpgroups on wgmma "
+                   "from shared memory on a 128 x 256 tile "
+                   "(csrc/tma_wgmma.cuh, shared with pdot_tma); "
+                   "N-panel-major tile walk",
+         "build": fc6_build},
         {"name": "pdot", "route": "cuda", "source": src + "pdot.cu",
          "replaces": ref + "pdot.py:47",
          "launches": dlaunches["pdot"],

@@ -2,7 +2,7 @@
 """Times hand-written kernels of one checkout of the PyTorch port, on one
 GPU, by CUDA events and by device time.
 
-    python3 scripts/torch_kernel_times.py [--kernels k1,k8,k5k6,k7f32]
+    python3 scripts/torch_kernel_times.py [--kernels k1,k8,k5k6,k7f32,fc6]
         [--root DIR]
 
 Imports `zeroshotsemanticsegmentation_tpu_torch` from DIR (default: this
@@ -26,7 +26,14 @@ inputs:
         gradients) and the H2D probe's 512^3 product (K10a), beside
         torch.matmul (TF32 off); device time of the kernels named `pdot`,
         the kernels one call launches (name: recorded launches a call),
-        the plan, and the relative norm vs an fp64 product.
+        the plan, and the relative norm vs an fp64 product;
+  fc6   `conv7x7_igemm`, fc6's implicit-GEMM forward, in bf16 at B=16
+        (serving) and B=24 (training), (B, 512, 23, 23) -> 4096, beside
+        cuDNN's bf16 F.conv2d and torch.matmul over the unfolded
+        bf16 patch matrix (the product alone), with the bound (operations
+        at 989 TFLOP/s); device time of the kernels named `conv7x7_igemm`,
+        its relative norm vs the fp32 product (its plain version, TF32
+        off) beside cuDNN's bf16 output's, and two calls bit-equal.
 
 CUDA events around 20 calls and torch.profiler's device time over 20
 calls, per call, with `chip_smoke.py`'s `time_ms` and `device_ms`. Prints
@@ -56,7 +63,10 @@ K7F32_SHAPES = (("fc6_input_grad", 6936, 4096, 25088, False),
                 ("score_fr_weight_grad", 4096, 6936, 20, True),
                 ("seenmask_score_weight_grad", 4096, 6936, 2, True),
                 ("k10a", 512, 512, 512, False))  # (name, M, K, N, trans_a)
-KERNELS = ("k1", "k8", "k5k6", "k7f32")
+FC6_BATCHES = (16, 24)
+FC6_SHAPE = (512, 23, 23, 4096, 7)   # Cin, IH, IW, Cout, kernel
+PEAK_BF16_FLOP_S = 989e12
+KERNELS = ("k1", "k8", "k5k6", "k7f32", "fc6")
 
 
 def time_k1(sz, dev, rng, time_ms, device_ms) -> list:
@@ -168,6 +178,56 @@ def time_k7f32(pd, dev, time_ms, device_ms) -> list:
     return out
 
 
+def time_fc6(c7, dev, time_ms, device_ms) -> list:
+    import torch
+    import torch.nn.functional as F
+    ci, ih, iw, co, k = FC6_SHAPE
+    out = []
+    for batch in FC6_BATCHES:
+        gen = torch.Generator(device=dev).manual_seed(batch)
+        x = torch.randn(batch, ih, iw, ci, device=dev, generator=gen).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+        w = (torch.randn(co, ci, k, k, device=dev, generator=gen)
+             / (ci * k * k) ** 0.5).to(torch.bfloat16)
+        wp = c7.pack_weight(w, torch.bfloat16)
+        m = batch * (ih - k + 1) * (iw - k + 1)
+        flops = 2.0 * m * co * ci * k * k
+        ref = c7.conv7x7_igemm_plain(x.float(), wp.float())
+
+        def rel(y):
+            return ((y.float() - ref).norm() / ref.norm()).item()
+
+        def kern():
+            return c7.conv7x7_igemm(x, wp)
+
+        row = {"batch": batch, "m": m, "flops": flops,
+               "bound_ms": flops / PEAK_BF16_FLOP_S * 1e3}
+        y = kern()
+        again = kern()
+        torch.cuda.synchronize()
+        dms = device_ms(kern, 5, "conv7x7_igemm")
+        row["kernel"] = {"ms": time_ms(kern, 5), "device_ms": dms,
+                         "roofline_pct": 100.0 * row["bound_ms"] / dms,
+                         "rel_norm_vs_fp32": rel(y),
+                         "bit_equal": bool(torch.equal(y, again))}
+        del y, again
+        lib = F.conv2d(x, w)
+        row["cudnn"] = {"ms": time_ms(lambda: F.conv2d(x, w), 3),
+                        "device_ms": device_ms(lambda: F.conv2d(x, w), 3),
+                        "rel_norm_vs_fp32": rel(lib)}
+        del lib
+        cols = c7.patches(x, k, k)  # (M, 49 * 512) bf16, materialised
+        km = wp.permute(0, 2, 3, 1).reshape(co, -1).t()   # a view
+        row["patch_matmul"] = {
+            "patch_matrix_bytes": cols.numel() * 2,
+            "ms": time_ms(lambda: torch.matmul(cols, km), 5),
+            "device_ms": device_ms(lambda: torch.matmul(cols, km), 5)}
+        del cols, km, x, w, wp, ref
+        torch.cuda.empty_cache()
+        out.append(row)
+    return out
+
+
 def run(root: str, kernels) -> dict:
     import numpy as np
     import torch
@@ -185,8 +245,9 @@ def run(root: str, kernels) -> dict:
         l2_normalize)
     if not osp.abspath(sz.__file__).startswith(osp.abspath(root)):
         raise RuntimeError(f"imported {sz.__file__}, not from {root}")
+    from zeroshotsemanticsegmentation_tpu_torch.ops import conv7x7 as c7
     libs = {"k1": "szn_fused", "k8": "conv1_1", "k5k6": "costail_fused",
-            "k7f32": "pdot"}
+            "k7f32": "pdot", "fc6": "conv7x7_igemm"}
     _kernels.build(tuple(libs[k] for k in kernels))
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -201,6 +262,8 @@ def run(root: str, kernels) -> dict:
         out["k5k6"] = time_k5k6(ct, l2_normalize, dev, rng, *timers)
     if "k7f32" in kernels:
         out["k7f32"] = time_k7f32(pd, dev, *timers)
+    if "fc6" in kernels:
+        out["fc6"] = time_fc6(c7, dev, *timers)
     return out
 
 

@@ -16,7 +16,7 @@ weights:
 
   kernels  the production predictor, `serving.make_szn_predictor` (K2, K1)
   plain    the same bf16 model and geometry, K1 and K2 through their plain
-           versions
+           versions and fc6's forward through F.conv2d
   fp32     fp32 with TF32 off, unpruned, both full-resolution heads, then
            `ops.nne.infer_labels_szn`
 
@@ -24,7 +24,8 @@ and reports each bf16 run's label flip rate against fp32's, their ratio,
 the overall / seen / unseen metric quadruples (`ops.metrics`) of all three
 against the labels with their |delta| from fp32's, and K1-K6's
 launches. The bar (PERF.md's serving bf16 bar): flips(kernels) <= 2 x
-flips(plain); K3-K6 >= train_steps launches each, K1 and K2 >= batches.
+flips(plain); K3-K6 and fc6's implicit-GEMM forward >= train_steps
+launches each, K1, K2 and fc6 >= batches.
 Images are `RandomState(seed)` normals x 40, labels uniform in [-1, 21)
 (the JAX record's data; on it a short run may predict one class
 everywhere, so the report also counts the classes predicted and the raw
@@ -63,8 +64,8 @@ N_CLASS = 21
 VAL_UNSEEN = (6, 7, 10, 14, 15, 16, 17, 18, 19, 20)  # config 14
 METRIC_ORDER = ["pxl_acc", "class_acc", "mean_iu", "fwavacc"]
 TRAIN_KEYS = ("block1_train_fwd", "block1_train_bwd", "costail_fwd",
-              "costail_bwd")
-SERVE_KEYS = ("szn_fused", "block1_fused")
+              "costail_bwd", "conv7x7_igemm")
+SERVE_KEYS = ("szn_fused", "block1_fused", "conv7x7_igemm")
 # "coherent" labels: one class a PATCH x PATCH cell, its color (uniform in
 # [-COLOR, COLOR] a channel, from RandomState(seed + 1)) added to the image
 LABELS = ("random", "coherent")
@@ -72,7 +73,8 @@ PATCH = 64
 COLOR = 60.0
 KERNEL_NAMES = {"szn_fused": "K1", "block1_fused": "K2",
                 "block1_train_fwd": "K3", "block1_train_bwd": "K4",
-                "costail_fwd": "K5", "costail_bwd": "K6"}
+                "costail_fwd": "K5", "costail_bwd": "K6",
+                "conv7x7_igemm": "fc6"}
 
 
 def card_line() -> str | None:
@@ -106,6 +108,7 @@ def run_bf16(batches: int = 4, batch_size: int = 8, size: int = 512,
     from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
     from zeroshotsemanticsegmentation_tpu_torch.ops import (
         block1_fused as b1)
+    from zeroshotsemanticsegmentation_tpu_torch.ops import conv7x7 as c7
     from zeroshotsemanticsegmentation_tpu_torch.ops import szn_fused as sz
     from zeroshotsemanticsegmentation_tpu_torch.ops.metrics import (
         hist_to_metrics, unseen_mask_vector, zeroshot_hists)
@@ -190,7 +193,9 @@ def run_bf16(batches: int = 4, batch_size: int = 8, size: int = 512,
 
     def predict_plain(images):
         with mock.patch.object(sz, "szn_labels", sz.szn_labels_plain), \
-                mock.patch.object(b1, "block1_op", b1.block1_plain):
+                mock.patch.object(b1, "block1_op", b1.block1_plain), \
+                mock.patch.object(c7, "igemm_route",
+                                  lambda h, cout: False):
             return predict(images)
 
     runs = {"kernels": predict, "plain": predict_plain, "fp32": predict_fp32}
@@ -340,7 +345,8 @@ def _bf16_section(r: dict) -> list:
         "- launches: " + ", ".join(
             f"{KERNEL_NAMES[k]} {r['launches'][part][k]}"
             for part, keys in (("serve_kernels", SERVE_KEYS),
-                               ("train", TRAIN_KEYS)) for k in keys)
+                               ("train", TRAIN_KEYS)) for k in keys
+            if k in r["launches"][part])
         + f" (plain run: K1 {r['launches']['serve_plain']['szn_fused']}, "
         f"K2 {r['launches']['serve_plain']['block1_fused']}) {card}",
         f"- bar: {bar} {card}",

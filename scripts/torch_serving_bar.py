@@ -7,9 +7,10 @@ through the kernels and through the plain block 1.
 Serves the full-width FCN-32s SZN predictor of the PyTorch port (20-dim
 pascal embeddings, unseen classes [1, 13], seeded random weights) on the
 same 512x512 images three times: in bf16 through the kernels, in bf16 with
-block 1 through its plain version (`block1_plain`, everything else as
-before) and in fp32 with TF32 off. Prints one JSON line with each bf16
-run's label flip rate against the fp32 labels and their ratio;
+block 1 through its plain version (`block1_plain`) and fc6's forward
+through F.conv2d (everything else as before) and in fp32 with TF32 off.
+Prints one JSON line with each bf16 run's label flip rate against the fp32
+labels and their ratio, and the kernel run's K2 and fc6 launches;
 chip_smoke.py holds the kernels to at most 2x the plain run's rate. Needs
 a card: exits non-zero without one.
 """
@@ -34,8 +35,9 @@ UNSEEN = [1, 13]
 
 def run(images: int = 8, seed: int = 0, log=print) -> dict:
     """The three serving runs on `images` images from `seed`: flip rates of
-    the bf16 kernels' and the bf16 plain block 1's labels against fp32's,
-    and the kernels' K2 launches."""
+    the bf16 kernels' and the bf16 plain run's (block 1's plain version,
+    fc6 on F.conv2d) labels against fp32's, and the kernels' K2 and fc6
+    launches."""
     import torch
     from zeroshotsemanticsegmentation_tpu_torch.data.assets import (
         load_class_embeddings)
@@ -45,6 +47,7 @@ def run(images: int = 8, seed: int = 0, log=print) -> dict:
     from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
     from zeroshotsemanticsegmentation_tpu_torch.ops import (
         block1_fused as b1)
+    from zeroshotsemanticsegmentation_tpu_torch.ops import conv7x7 as c7
     from zeroshotsemanticsegmentation_tpu_torch.serving import (
         make_szn_predictor)
 
@@ -68,19 +71,21 @@ def run(images: int = 8, seed: int = 0, log=print) -> dict:
     _kernels.reset_launch_counts()
     kern = labels(torch.bfloat16)
     k2 = _kernels.launch_counts["block1_fused"]
-    with mock.patch.object(b1, "block1_op", b1.block1_plain):
+    fc6 = _kernels.launch_counts["conv7x7_igemm"]
+    with mock.patch.object(b1, "block1_op", b1.block1_plain), \
+            mock.patch.object(c7, "igemm_route", lambda h, cout: False):
         plain = labels(torch.bfloat16)
     res = {"images": images, "hw": [H, W], "seed": seed,
            "flip_kernels": (kern != ref).float().mean().item(),
            "flip_plain": (plain != ref).float().mean().item(),
            "flip_kernels_vs_plain": (kern != plain).float().mean().item(),
-           "block1_fused_launches": k2}
+           "block1_fused_launches": k2, "conv7x7_igemm_launches": fc6}
     res["ratio"] = (res["flip_kernels"] / res["flip_plain"]
                     if res["flip_plain"] > 0 else float("inf"))
     log(f"bf16 label flips vs fp32: kernels {res['flip_kernels']:.4e}, "
-        f"plain block 1 {res['flip_plain']:.4e} (ratio {res['ratio']:.3f}); "
+        f"plain {res['flip_plain']:.4e} (ratio {res['ratio']:.3f}); "
         f"kernels vs plain {res['flip_kernels_vs_plain']:.4e}; K2 launches "
-        f"{k2}")
+        f"{k2}, fc6 {fc6}")
     return res
 
 

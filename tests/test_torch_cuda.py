@@ -579,6 +579,117 @@ def test_dot_free_conv_matches_default(rng, cuda, name):
         assert _rel(b, a) < 1e-5, _rel(b, a)
 
 
+# fc6's implicit-GEMM forward: (B, Cin, IH, IW) and Cout
+IGEMM_SHAPES = {"serve-b16": ((16, 512, 23, 23), 4096),
+                "train-b24": ((24, 512, 23, 23), 4096),
+                "cli-b1": ((1, 512, 23, 23), 4096),
+                "band-tp-shard": ((2, 512, 29, 13), 2048)}
+
+
+@pytest.mark.parametrize("case", list(IGEMM_SHAPES))
+def test_conv7x7_igemm_matches_conv2d(rng, cuda, case):
+    """fc6's kernel vs the exact product of the same bf16 inputs (fp64):
+    every output within one bf16 ulp of it (2^-8 |ref|) plus 2^-13 of the
+    output's scale (max |ref|) for the fp32 sums on the tensor cores, which
+    do not round to nearest inside an accumulation (at K = 25088 the card
+    left up to about 1e-4 of a 5.5 scale); its relative error norm no
+    wider than cuDNN's bf16 output's own (both round, once, fp32 sums of
+    the same products: 1% covers the accumulations' differences; on the
+    card 1.0002x); one launch a call, two calls bit-equal, channels_last
+    NCHW out."""
+    shape, cout = IGEMM_SHAPES[case]
+    b, ci, ih, iw = shape
+    x = _t(rng.randn(b, ih, iw, ci).astype(np.float32), cuda).to(
+        torch.bfloat16).permute(0, 3, 1, 2)
+    w = _t((rng.randn(cout, ci, 7, 7) / np.sqrt(ci * 49)).astype(np.float32),
+           cuda).to(torch.bfloat16)
+    wp = tc7.pack_weight(w, torch.bfloat16)
+    assert tc7.igemm_route(x, cout)
+    before = _kernels.launch_counts["conv7x7_igemm"]
+    got = tc7.conv7x7_igemm(x, wp)
+    assert _kernels.launch_counts["conv7x7_igemm"] == before + 1
+    again = tc7.conv7x7_igemm(x, wp)
+    assert _kernels.launch_counts["conv7x7_igemm"] == before + 2
+    km = wp.double().permute(0, 2, 3, 1).reshape(cout, -1)
+    ref = (tc7.patches(x.double(), 7, 7) @ km.t()).view(
+        b, ih - 6, iw - 6, cout).permute(0, 3, 1, 2)
+    lib = torch.nn.functional.conv2d(x, w)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (b, cout, ih - 6, iw - 6)
+    assert got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, again)
+    err = (got.double() - ref).abs()
+    bar = 2.0 ** -8 * ref.abs() + 2.0 ** -13 * ref.abs().max()
+    assert bool((err <= bar).all()), (err - bar).max()
+    assert _rel(got, ref) <= 1.01 * _rel(lib, ref), (_rel(got, ref),
+                                                     _rel(lib, ref))
+
+
+def test_conv7x7_igemm_refuses_what_it_cannot_run(cuda):
+    """The wrapper raises (and counts nothing) for what the kernel does not
+    take: fp32, Cout off its granule, a weight not packed; the op keeps
+    F.conv2d there."""
+    x = torch.zeros(1, 512, 9, 9, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(256, 512, 7, 7, device=cuda)
+    before = _kernels.launch_counts["conv7x7_igemm"]
+    for xs, wp in ((x.float(), tc7.pack_weight(w, torch.float32)),
+                   (x, tc7.pack_weight(w[:100], torch.bfloat16)),
+                   (x, w.to(torch.bfloat16))):
+        assert not tc7.runs_igemm(xs, wp)
+        with pytest.raises(ValueError, match="conv7x7_igemm"):
+            tc7.conv7x7_igemm(xs, wp)
+    assert _kernels.launch_counts["conv7x7_igemm"] == before
+
+
+def test_stage1_step_with_the_igemm_forward_holds_the_bf16_bar(cuda,
+                                                               monkeypatch):
+    """A stage-1 step (cos loss, fused tail, Adam, dropout) of a 1/8-width
+    FCN-32s (fc6 64 -> 512 channels) at B=2, 256x256: in bf16 with fc6's
+    forward on the kernel (one launch) and on F.conv2d (none), each
+    parameter's gradient vs the fp32 step's (TF32 off); the kernel's run
+    at most 2x as far from fp32 as the F.conv2d run (the stage-1 bf16
+    bar)."""
+    from zeroshotsemanticsegmentation_tpu_torch.models import FCN32s
+    from zeroshotsemanticsegmentation_tpu_torch.train import (
+        TrainState, make_fcn_optimizer, make_fcn_train_step)
+    r = np.random.RandomState(5)
+    embed = r.randn(21, 20).astype(np.float32)
+    embed /= np.linalg.norm(embed, axis=1, keepdims=True)
+    step = make_fcn_train_step(loss_name="cos", num_classes=21,
+                               embeddings=embed)
+    hw = 256
+    batch = {"image": _t(r.randn(2, hw, hw, 3).astype(np.float32) * 40,
+                         cuda),
+             "label": _t(r.randint(-1, 21, (2, hw, hw)).astype(np.int32),
+                         cuda),
+             "sizes": torch.full((2, 2), hw, dtype=torch.int32, device=cuda),
+             "num_real": torch.tensor(2, device=cuda)}
+    kernel_route = tc7.igemm_route
+
+    def grads(dtype, route):
+        monkeypatch.setattr(tc7, "igemm_route", route)
+        m = FCN32s(20, dtype=dtype, channel_scale=1 / 8, device=cuda,
+                   generator=torch.Generator().manual_seed(1))
+        st = TrainState.create(m, make_fcn_optimizer(m, optim="adam",
+                                                     lr=1e-5))
+        before = _kernels.launch_counts["conv7x7_igemm"]
+        step(st, batch, torch.Generator(device=cuda).manual_seed(1))
+        torch.cuda.synchronize()
+        return (_kernels.launch_counts["conv7x7_igemm"] - before,
+                {n: p.grad.detach().float().clone()
+                 for n, p in m.named_parameters() if p.grad is not None})
+
+    n32, g32 = grads(torch.float32, kernel_route)
+    nk, gk = grads(torch.bfloat16, kernel_route)
+    nc, gc = grads(torch.bfloat16, lambda h, co: False)
+    assert (n32, nk, nc) == (0, 1, 0)
+    assert g32.keys() == gk.keys() == gc.keys()
+    errs = {n: (_rel(gk[n], g32[n]), _rel(gc[n], g32[n])) for n in g32}
+    misses = {n: e for n, e in errs.items() if not e[0] <= 2 * e[1]}
+    assert not misses, misses
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hw", [(38, 42), (66, 34), (4, 132)])
 def test_conv1_1_kernel_matches_plain(rng, cuda, dtype, hw):

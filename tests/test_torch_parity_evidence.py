@@ -97,7 +97,7 @@ def test_bf16_study_on_the_cpu(labels):
         assert len(r["metrics"][g]["fp32"]) == 4
     assert sum(r["launches"]["train"].values()) == 0
     assert sorted(m.split()[0] for m in r["bar_failures"]) == [
-        "K1", "K2", "K3", "K4", "K5", "K6"]
+        "K1", "K2", "K3", "K4", "K5", "K6", "fc6", "fc6"]
 
 
 def test_bf16_refuses_without_a_card():

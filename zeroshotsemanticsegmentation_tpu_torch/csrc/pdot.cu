@@ -29,9 +29,10 @@
 // whose preconditions fail:
 //   tma (bf16; a's and b's rows and bases 16-byte aligned, M and N >= 64):
 //     `pdot_tma`, persistent blocks of three warpgroups on a 128 x BN tile
-//     (BN = kTmaBN): one thread of the first keeps a ring of kTmaStages
-//     k-steps of 64 in flight by TMA (128-byte swizzle, out-of-bounds rows
-//     and columns zero-filled, `mbarrier` full / empty pairs); the other two
+//     (BN = kTmaBN): one thread of the first keeps a ring of k-steps of 64
+//     in flight by TMA (128-byte swizzle, out-of-bounds rows and columns
+//     zero-filled, `mbarrier` full / empty pairs; csrc/tma_wgmma.cuh, which
+//     fc6's implicit-GEMM forward shares); the other two
 //     each multiply a 64-row half on wgmma straight from shared memory by
 //     descriptor (A K-major, or M-major under trans_a through wgmma's
 //     transpose bit; B N-major), and store their accumulators to device
@@ -83,7 +84,6 @@
 // alone has 174 M elements).
 
 #include <cooperative_groups.h>
-#include <cuda.h>  // CUtensorMap; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -92,6 +92,7 @@
 #include <type_traits>
 
 #include "conv3x3_wgmma.cuh"
+#include "tma_wgmma.cuh"
 
 namespace {
 
@@ -122,16 +123,7 @@ __device__ __forceinline__ void store_out(void* out, bool out_f32, size_t i,
     static_cast<bf16*>(out)[i] = __float2bfloat16_rn(v);
 }
 
-// two adjacent outputs (i even, 8-byte aligned in fp32)
-__device__ __forceinline__ void store_out2(void* out, bool out_f32, size_t i,
-                                           float v0, float v1) {
-  if (out_f32)
-    *reinterpret_cast<float2*>(static_cast<float*>(out) + i) =
-        make_float2(v0, v1);
-  else
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + i) =
-        __floats2bfloat162_rn(v0, v1);
-}
+using tw::store_out2;
 
 // copies a rows x cols tile of the row-major (.., ld) matrix src, starting
 // at (r0, c0), into dst (row stride dld), zero past (r_end, c_end); with
@@ -551,106 +543,19 @@ __global__ void pdot_reduce(const float* __restrict__ ws,
 
 
 // ---- the tma variant: TMA ring + wgmma, warp-specialised ------------------
+// (the ring, the consumers' mainloop and the epilogue: csrc/tma_wgmma.cuh)
 
-constexpr int kTmaBM = 128, kTmaBK = 64;
 constexpr int kTmaBN = 256;
-constexpr int kTmaStages = 4;
-constexpr int kTmaThreads = 384;       // producer + two consumer warpgroups
 constexpr int kGroupM = 16;            // M tiles a raster group spans
 constexpr int kBoxBytes = 64 * 64 * 2; // one 64 x 64 bf16 TMA box
 
 template <int BN>
 struct TmaCfg {
-  static constexpr int kA = kTmaBM * kTmaBK * 2;   // 16 KB
-  static constexpr int kB = kTmaBK * BN * 2;
+  static constexpr int kA = tw::kBM * tw::kBK * 2;   // 16 KB
+  static constexpr int kB = tw::kBK * BN * 2;
   static constexpr int kStage = kA + kB;
-  // the stages at a 1024-byte aligned base (the swizzle atom), then the
-  // full and empty barriers
-  static constexpr int kSmem = 1024 + kTmaStages * kStage + 2 * kTmaStages * 8;
+  using Ring = tw::Ring<kStage>;
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-// waits until the phase of parity `parity` has completed; a phase that
-// never completes (a lost TMA transaction) ends the launch with an error
-// after 10 s instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try(bar, parity))
-    if (global_ns() - t0 > 10000000000ull) __trap();
-}
-// the box at (c0, c1) (innermost coordinate first) of `map` into `dst`,
-// completing `bytes` on barrier `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-// a 128-byte-swizzle shared-memory matrix descriptor; lbo and sbo in bytes
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return c3w::desc(addr, lbo, sbo) | (uint64_t{1} << 62);
-}
-
-// d (m64 x n128, fp32) += A (m64 x k16) x B (k16 x n128), both from shared
-// memory through descriptors; kTransA / kTransB = 1 read MN-major
-template <int kTransA, int kTransB>
-__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63}, "
-      "%64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
-}
 
 // tile t of the persistent walk: groups of kGroupM M-tiles, M fastest
 // inside a group, then N
@@ -664,6 +569,28 @@ __device__ __forceinline__ void raster(int t, int tiles_m, int tiles_n,
   tn = r / gm;
 }
 
+// one k-step of consumer `cw` from the stage at `slot`
+template <int BN, bool kTransA>
+struct TmaMma {
+  int cw;
+  __device__ __forceinline__ void operator()(uint32_t slot,
+                                             float (&acc)[BN / 128][64]) const {
+    const uint32_t sa = slot + cw * 8192;
+    const uint32_t sb = slot + TmaCfg<BN>::kA;
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t da = kTransA ? tw::desc_sw128(sa + ks * 2048, 8192, 1024)
+                                  : tw::desc_sw128(sa + ks * 32, 16, 1024);
+#pragma unroll
+      for (int h = 0; h < BN / 128; ++h)
+        tw::mma_ss_n128<kTransA ? 1 : 0, 1>(
+            acc[h], da,
+            tw::desc_sw128(sb + h * 2 * kBoxBytes + ks * 2048, kBoxBytes,
+                           1024));
+    }
+  }
+};
+
 // A stage holds A as 128 rows x 64 k, K-major, one 16 KB box (or, with
 // kTransA, two 64 m x 64 k M-major boxes of 8 KB, one per consumer), then B
 // as BN / 64 N-major boxes of 64 n x 64 k; every box 128-byte swizzled in
@@ -672,58 +599,44 @@ __device__ __forceinline__ void raster(int t, int tiles_m, int tiles_n,
 // N-major operands advance 2048 B (two 8-k atoms) per k16 step, with
 // lbo = 8 KB between 64-wide boxes and sbo = 1024 between 8-k atoms.
 template <int BN, bool kTransA>
-__global__ void __launch_bounds__(kTmaThreads, 1) pdot_tma(
+__global__ void __launch_bounds__(tw::kThreads, 1) pdot_tma(
     const __grid_constant__ CUtensorMap ta,
     const __grid_constant__ CUtensorMap tb, void* __restrict__ out,
     bool out_f32, int m, int n, int k) {
   using Cfg = TmaCfg<BN>;
   extern __shared__ __align__(128) uint8_t smem[];
-  const uint32_t raw = c3w::smem_u32(smem);
-  const uint32_t stages = (raw + 1023) & ~1023u;
-  const uint32_t full = stages + kTmaStages * Cfg::kStage;
-  const uint32_t empty = full + 8 * kTmaStages;
-  const int tiles_m = (m + kTmaBM - 1) / kTmaBM;
+  typename Cfg::Ring ring(smem);
+  const int tiles_m = (m + tw::kBM - 1) / tw::kBM;
   const int tiles_n = (n + BN - 1) / BN;
   const int tiles = tiles_m * tiles_n;
-  const int kblocks = (k + kTmaBK - 1) / kTmaBK;
+  const int kblocks = (k + tw::kBK - 1) / tw::kBK;
   const int wg = threadIdx.x / 128;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kTmaStages; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  ring.init(1);
 
   if (wg == 0) {  // producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 0) {
-      int stage = 0;
-      uint32_t phase = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         int tm, tn;
         raster(t, tiles_m, tiles_n, tm, tn);
         for (int kb = 0; kb < kblocks; ++kb) {
-          mbar_wait(empty + 8 * stage, phase ^ 1);
-          const uint32_t bar = full + 8 * stage;
-          mbar_expect_tx(bar, Cfg::kStage);
-          const uint32_t sa = stages + stage * Cfg::kStage;
+          ring.wait_empty();
+          const uint32_t bar = ring.full_bar();
+          tw::mbar_expect_tx(bar, Cfg::kStage);
+          const uint32_t sa = ring.slot();
           const uint32_t sb = sa + Cfg::kA;
           if (kTransA) {
-            tma_load(sa, &ta, tm * kTmaBM, kb * kTmaBK, bar);
-            tma_load(sa + kBoxBytes, &ta, tm * kTmaBM + 64, kb * kTmaBK, bar);
+            tw::tma_load(sa, &ta, tm * tw::kBM, kb * tw::kBK, bar);
+            tw::tma_load(sa + kBoxBytes, &ta, tm * tw::kBM + 64,
+                         kb * tw::kBK, bar);
           } else {
-            tma_load(sa, &ta, kb * kTmaBK, tm * kTmaBM, bar);
+            tw::tma_load(sa, &ta, kb * tw::kBK, tm * tw::kBM, bar);
           }
 #pragma unroll
           for (int j = 0; j < BN / 64; ++j)
-            tma_load(sb + j * kBoxBytes, &tb, tn * BN + 64 * j, kb * kTmaBK,
-                     bar);
-          if (++stage == kTmaStages) {
-            stage = 0;
-            phase ^= 1;
-          }
+            tw::tma_load(sb + j * kBoxBytes, &tb, tn * BN + 64 * j,
+                         kb * tw::kBK, bar);
+          ring.next();
         }
       }
     }
@@ -731,66 +644,15 @@ __global__ void __launch_bounds__(kTmaThreads, 1) pdot_tma(
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int cw = wg - 1, warp = (threadIdx.x / 32) % 4,
               lane = threadIdx.x % 32;
-    int stage = 0;
-    uint32_t phase = 0;
+    const TmaMma<BN, kTransA> mma{cw};
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       int tm, tn;
       raster(t, tiles_m, tiles_n, tm, tn);
       float acc[BN / 128][64];
-#pragma unroll
-      for (int h = 0; h < BN / 128; ++h) {
-#pragma unroll
-        for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
-        c3w::fence_acc(acc[h]);
-      }
-      int prev = -1;
-      for (int kb = 0; kb < kblocks; ++kb) {
-        mbar_wait(full + 8 * stage, phase);
-        const uint32_t sa = stages + stage * Cfg::kStage + cw * 8192;
-        const uint32_t sb = stages + stage * Cfg::kStage + Cfg::kA;
-        c3w::wg_fence();
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-          const uint64_t da = kTransA ? desc_sw128(sa + ks * 2048, 8192, 1024)
-                                      : desc_sw128(sa + ks * 32, 16, 1024);
-#pragma unroll
-          for (int h = 0; h < BN / 128; ++h)
-            mma_ss_n128<kTransA ? 1 : 0, 1>(
-                acc[h], da,
-                desc_sw128(sb + h * 2 * kBoxBytes + ks * 2048, kBoxBytes,
-                           1024));
-        }
-        c3w::wg_commit();
-        c3w::wg_wait<1>();  // k-step kb - 1 is done: its stage is free
-        if (prev >= 0 && lane == 0) mbar_arrive(empty + 8 * prev);
-        prev = stage;
-        if (++stage == kTmaStages) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-      c3w::wg_wait<0>();
-      if (prev >= 0 && lane == 0) mbar_arrive(empty + 8 * prev);
-#pragma unroll
-      for (int h = 0; h < BN / 128; ++h) c3w::fence_acc(acc[h]);
-      // accumulator rows lane / 4 (+ 8) of warp `warp`'s 16, columns
-      // 8 c + 2 (lane % 4) (+ 1) of each n128 half; n % 8 == 0, so a pair
-      // is in or out together
-      const int row0 = tm * kTmaBM + 64 * cw + 16 * warp + lane / 4;
-#pragma unroll
-      for (int h = 0; h < BN / 128; ++h)
-#pragma unroll
-        for (int c = 0; c < 16; ++c) {
-          const int col = tn * BN + 128 * h + 8 * c + 2 * (lane % 4);
-          if (col >= n) continue;
-#pragma unroll
-          for (int rr = 0; rr < 2; ++rr) {
-            const int row = row0 + 8 * rr;
-            if (row < m)
-              store_out2(out, out_f32, static_cast<size_t>(row) * n + col,
-                         acc[h][4 * c + 2 * rr], acc[h][4 * c + 2 * rr + 1]);
-          }
-        }
+      tw::consume_tile<false>(ring, kblocks, lane, acc, mma);
+      tw::store_tile(acc, out, out_f32, m, n,
+                     tm * tw::kBM + 64 * cw + 16 * warp + lane / 4, tn * BN,
+                     lane);
     }
   }
 }
@@ -991,9 +853,7 @@ cudaError_t dispatch_bf16(bool trans, bool va, bool vb, dim3 grid,
       grid, s, a, b, out, out_f32, m, n, k, k_chunk);
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
+using tw::aligned16;
 
 // one fp32 instance as clusters of (1, 1, splits) blocks; its dynamic shared
 // memory is opted into once per device
@@ -1087,59 +947,8 @@ bool f32_vec(int variant) {
 
 bool vec_ok(const void* p, int ld) { return aligned16(p) && ld % 8 == 0; }
 
-cudaError_t sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return err;
-}
-
-// cuTensorMapEncodeTiled, looked up at run time through the runtime's
-// entry-point query, so the library needs no -lcuda
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// the tensor map of a row-major (outer, inner) bf16 matrix read in
-// (box_inner, box_outer) boxes with the 128-byte swizzle; out-of-bounds
-// elements read as zero
-bool make_map(CUtensorMap* map, const void* base, int inner, int outer,
-              int box_inner, int box_outer) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
-                              static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
-                             static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t estr[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-            const_cast<void*>(base), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+using tw::make_map;
+using tw::sm_count;
 
 template <int BN, bool kTransA>
 cudaError_t launch_tma(const void* a, const void* b, void* out, bool out_f32,
@@ -1147,7 +956,7 @@ cudaError_t launch_tma(const void* a, const void* b, void* out, bool out_f32,
   CUtensorMap ta, tb;
   const bool ok =
       (kTransA ? make_map(&ta, a, m, k, 64, 64)
-               : make_map(&ta, a, k, m, kTmaBK, kTmaBM))
+               : make_map(&ta, a, k, m, tw::kBK, tw::kBM))
       && make_map(&tb, b, n, k, 64, 64);
   if (!ok) return cudaErrorInvalidValue;
   int sms = 0;
@@ -1155,12 +964,12 @@ cudaError_t launch_tma(const void* a, const void* b, void* out, bool out_f32,
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(pdot_tma<BN, kTransA>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               TmaCfg<BN>::kSmem);
+                               TmaCfg<BN>::Ring::kSmem);
   if (err != cudaSuccess) return err;
-  const long long tiles = static_cast<long long>((m + kTmaBM - 1) / kTmaBM)
+  const long long tiles = static_cast<long long>((m + tw::kBM - 1) / tw::kBM)
                           * ((n + BN - 1) / BN);
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  pdot_tma<BN, kTransA><<<grid, kTmaThreads, TmaCfg<BN>::kSmem, s>>>(
+  pdot_tma<BN, kTransA><<<grid, tw::kThreads, TmaCfg<BN>::Ring::kSmem, s>>>(
       ta, tb, out, out_f32, m, n, k);
   return cudaGetLastError();
 }

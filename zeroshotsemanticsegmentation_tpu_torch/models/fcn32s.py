@@ -11,7 +11,8 @@ As in the JAX package: the x32 FCN upscore is a fixed bilinear function
 ConvTranspose2d weight; blocks 1-4 run support-pruned (`models.pruned`) when
 `prune_pad` is set, and block 1 through the fused kernel when `fused_block1`
 is set. fc6 runs through `ops.conv7x7.conv_valid_mmgrad` (its input
-gradient is one matmul and an overlap-add), fc7 and both heads through
+gradient is one matmul and an overlap-add; in bf16 on the card its forward
+is the implicit-GEMM kernel), fc7 and both heads through
 `ops.conv1x1.conv1x1_mmwgrad` (weight gradient on K7 under the dot-free
 mode); their biases are added in the compute dtype. Parameters stay fp32;
 convolutions run in `dtype`. The module is built on the card unless
@@ -64,7 +65,7 @@ from zeroshotsemanticsegmentation_tpu_torch.ops.bilinear import (
 from zeroshotsemanticsegmentation_tpu_torch.ops.conv1x1 import (
     conv1x1_mmwgrad)
 from zeroshotsemanticsegmentation_tpu_torch.ops.conv7x7 import (
-    conv_valid_mmgrad)
+    conv_valid_mmgrad, runs_igemm, weight_for)
 from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
     copy_to_model, reduce_from_model)
 from zeroshotsemanticsegmentation_tpu_torch.utils.profiling import span
@@ -161,20 +162,23 @@ class VGGTrunk(nn.Module):
         """fc6 (7x7) or a 1x1 layer (fc7 and the heads) through its
         matmul-gradient op, + bias in the compute dtype; on a mesh fc6 and
         fc7 are its TP layers. fc6's product is the `model.fc6` span
-        (`utils.profiling`), counting the operations it is given."""
+        (`utils.profiling`), counting the operations it is given and, as
+        `igemm` (1 or 0), whether it ran on the implicit-GEMM kernel
+        (`ops.conv7x7.runs_igemm`)."""
         conv = getattr(self, name)
         mesh = self.mesh
-        w = conv.weight.to(self.dtype)
         if name == "fc6":
             if mesh is not None:
                 h = copy_to_model(h, mesh)
+            w = weight_for(h, conv.weight, self.dtype)
             co, ci, kh, kw = w.shape
             b, _, ih, iw = h.shape
             with span("model.fc6", device=True, flops=2 * b * co * ci * kh
-                      * kw * (ih - kh + 1) * (iw - kw + 1)):
+                      * kw * (ih - kh + 1) * (iw - kw + 1),
+                      igemm=int(runs_igemm(h, w))):
                 y = conv_valid_mmgrad(h, w)
         else:
-            y = conv1x1_mmwgrad(h, w)
+            y = conv1x1_mmwgrad(h, conv.weight.to(self.dtype))
         if mesh is not None and name == "fc7":
             y = reduce_from_model(y, mesh)
         return y + conv.bias.to(self.dtype)[:, None, None]
