@@ -250,7 +250,17 @@ Phases, each of which passes or ends the script with a non-zero exit:
    output's; its time beside its bound, cuDNN's
    F.conv2d and torch.matmul over the materialised patch matrix. Its
    kernels-line row gathers its launches on the paths of phases 5, 9 and
-   20-27.
+   20-27;
+29. DeepLab-v2 ResNet-101 on the serving path and K1 at x8
+   (`phase_deeplab`): the model at its published widths (bf16, seeded
+   weights) serves a B=16 batch of VOC-sized images in the 512 bucket
+   through `predict_arrays` and `make_szn_predictor`: K1 once a request
+   and no fold of batch norm after the first, its labels vs K1's plain
+   version on the same heads (flips < 1e-4, phase 3's bar); K1 alone at
+   the x8 geometry (stride 8, kernel 16, crop 4) on (16, 64, 64, K+1)
+   heads vs its plain version (flips < 1e-4, one launch a call, two calls
+   bit-equal), its time beside `benchmark.bounds.k1_bound_s` at
+   h8 = w8 = 64 in its own kernels-line row.
 
 The script reaches no network: `urllib.request.urlretrieve` raises in it,
 so the train CLI's VGG16 fetch of a fresh real-data run (phase 24 (f))
@@ -3892,6 +3902,120 @@ def phase_fc6(dev, kernels, log, require) -> dict:
     return out
 
 
+DEEPLAB_BATCH = 16
+# VOC's sides: the long side 500, the short 281-500, half portrait
+DEEPLAB_SIZES = [(375, 500), (500, 333), (333, 500), (500, 375),
+                 (281, 500), (500, 500), (400, 500), (500, 300)] * 2
+
+
+def phase_deeplab(dev, kernels, embed, flip_rate, log, require) -> dict:
+    """29. DeepLab-v2 ResNet-101 served at B=16, and K1 at x8 alone (see
+    the module docstring)."""
+    import torch
+    from benchmark import bounds
+    from zeroshotsemanticsegmentation_tpu_torch.cli.predict import (
+        predict_arrays)
+    from zeroshotsemanticsegmentation_tpu_torch.models import (
+        DeepLabV2ResNet101)
+    from zeroshotsemanticsegmentation_tpu_torch.ops import szn_fused as sz
+    from zeroshotsemanticsegmentation_tpu_torch.ops.metrics import (
+        unseen_mask_vector)
+    from zeroshotsemanticsegmentation_tpu_torch.serving import (
+        make_szn_predictor)
+    t0 = time.perf_counter()
+    geo = DeepLabV2ResNet101.UPSAMPLE
+    model = DeepLabV2ResNet101(
+        embed.shape[1], dtype=torch.bfloat16,
+        generator=torch.Generator().manual_seed(29), device=dev).eval()
+    pred = make_szn_predictor(model, None, embed, UNSEEN,
+                              upscore_trained=False, device=dev)
+    rng = np.random.RandomState(29)
+    images = [rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+              for h, w in DEEPLAB_SIZES]
+
+    def serve():
+        return predict_arrays(pred, images, bucket=(H, W),
+                              batch_size=DEEPLAB_BATCH)
+
+    serve()  # folds the batch norms, picks cuDNN's plans
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    requests = 4
+    t = time.perf_counter()
+    for _ in range(requests):
+        labels = serve()
+    request_ms = 1e3 * (time.perf_counter() - t) / requests
+    launched = dict(kernels.launch_counts)
+    log(f"[deeplab] B={DEEPLAB_BATCH} {H}x{W} bucket through predict_arrays:"
+        f" {request_ms:.2f} ms a request, "
+        f"{DEEPLAB_BATCH * H * W / request_ms / 1e3:.1f} Mpx/s computed; "
+        f"over {requests} requests K1 {launched['szn_fused']}, batch-norm "
+        f"folds {launched['bn_folds']}")
+    require(launched["szn_fused"] == requests,
+            f"DeepLab serving: K1 {launched['szn_fused']} launches in "
+            f"{requests} requests")
+    require(launched["bn_folds"] == 0,
+            f"DeepLab serving folded batch norm {launched['bn_folds']} "
+            "times after the first request")
+    require([lb.shape for lb in labels] == DEEPLAB_SIZES
+            and all(0 <= lb.min() and lb.max() < embed.shape[0]
+                    for lb in labels), "DeepLab serving: labels malformed")
+    batch = np.zeros((DEEPLAB_BATCH, H, W, 3), np.uint8)
+    for j, img in enumerate(images):
+        batch[j, :img.shape[0], :img.shape[1]] = img
+    batch = torch.from_numpy(batch)
+    got = pred(batch)
+    with mock.patch.object(sz, "szn_labels", sz.szn_labels_plain):
+        want = pred(batch)
+    serve_flips = flip_rate(got, want)
+    log(f"[deeplab] served labels, K1 vs its plain version on the model's "
+        f"heads: flip rate {serve_flips:.3e}")
+    require(serve_flips < 1e-4, f"DeepLab K1 flip rate {serve_flips}")
+    del model, pred, got, want, batch
+    torch.cuda.empty_cache()
+
+    # K1 alone at x8
+    uv = unseen_mask_vector(embed.shape[0], UNSEEN)
+    h8 = w8 = H // geo[0]
+    score = torch.randn(DEEPLAB_BATCH, h8, w8, embed.shape[1], device=dev)
+    gate = torch.randn(DEEPLAB_BATCH, h8, w8, device=dev)
+    aug = sz._aug(score, gate, sz._embed_scaled(embed, dev))
+    parts = sz._partition(~uv, uv)
+    kp1 = aug.shape[-1]
+
+    def k1():
+        return sz.szn_labels(aug, *parts, H, W, None, geo)
+
+    kernels.reset_launch_counts()
+    got, again = k1(), k1()
+    k1_launches = kernels.launch_counts["szn_fused"]
+    want = sz.szn_labels_plain(aug, *parts, H, W, None, geo)
+    flips = flip_rate(got, want)
+    require(k1_launches == 2, f"K1 x8: {k1_launches} launches in two calls")
+    require(torch.equal(got, again), "K1 x8: two calls differ")
+    require(flips < 1e-4, f"K1 x8 flip rate {flips}")
+    row = {"ms": time_ms(k1, iters=20),
+           "device_ms": device_ms(k1, 20, "szn_labels"),
+           "plain_ms": time_ms(
+               lambda: sz.szn_labels_plain(aug, *parts, H, W, None, geo), 3)}
+    nbytes = aug.numel() * 4 + DEEPLAB_BATCH * H * W * 4
+    b_s = bounds.k1_bound_s(DEEPLAB_BATCH, h8, w8, kp1, H, W)
+    row.update(bound_ms=1e3 * b_s, bound_by=(
+        "bytes" if b_s == nbytes / bounds.PEAK_BYTES_S else "operations"),
+        flip_rate=flips, launches=k1_launches,
+        shape=[DEEPLAB_BATCH, h8, w8, kp1, H, W], geometry=list(geo))
+    log(f"[deeplab] K1 x8 B={DEEPLAB_BATCH} {h8}x{w8} -> {H}x{W} "
+        f"K+1={kp1}: {row['ms']:.4f} ms by events, {row['device_ms']:.4f} "
+        f"device; bound {row['bound_ms']:.4f} ({row['bound_by']}, "
+        f"{row['bound_ms'] / row['device_ms']:.1%} of it reached); plain "
+        f"{row['plain_ms']:.3f}; flip rate {flips:.3e}")
+    out = {"request_ms": request_ms, "launches": launched,
+           "serve_flip_rate": serve_flips, "k1": row,
+           "seconds": time.perf_counter() - t0}
+    log(f"[deeplab] phase 29: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     try:
         import torch
@@ -5063,6 +5187,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     p28 = phase_fc6(dev, _kernels, log, require)
 
+    # ---- 29. DeepLab-v2 ResNet-101 served, K1 at x8 ------------------------
+    torch.cuda.empty_cache()
+    p29 = phase_deeplab(dev, _kernels, embed, flip_rate, log, require)
+
     def launches27(key: str) -> dict:
         """One kernel's launches on phase 27's programs (warm and timed
         runs)."""
@@ -5137,6 +5265,17 @@ def main() -> None:
          "device_ms_nne": k1_nne_device_ms,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
          "shape": [SERVE_BATCH, 17, 17, kp1, H, W], "build": k1_build},
+        {"name": "szn_fused_labels (x8, DeepLab-v2)", "route": "cuda",
+         "source": src + "szn_fused.cu",
+         "replaces": ref + "szn_fused.py:44",
+         "launches": p29["k1"]["launches"],
+         "launches_deeplab_serving": p29["launches"]["szn_fused"],
+         "flip_rate": p29["k1"]["flip_rate"],
+         "flip_rate_serving": p29["serve_flip_rate"],
+         **{k: p29["k1"][k] for k in ("ms", "device_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "shape",
+                                      "geometry")},
+         "library_ms": None, "build": k1_build},
         {"name": "block1_fused_forward", "route": "cuda",
          "source": src + "block1_fused.cu",
          "replaces": ref + "block1_fused.py:485",

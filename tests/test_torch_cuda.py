@@ -387,6 +387,34 @@ def test_szn_kernel_context_width(rng, cuda, small, out):
     assert (got != want).float().mean().item() < 1e-4
 
 
+@pytest.mark.parametrize("small,out", [((64, 64), (512, 512)),
+                                       ((63, 47), (500, 375)),
+                                       ((3, 5), (17, 33))])
+def test_szn_kernel_x8_matches_plain(rng, cuda, small, out):
+    """K1 at DeepLab-v2's x8 geometry (stride 8, kernel 16, crop 4) vs its
+    plain version: flips < 1e-4, one launch a call, two calls bit-equal;
+    on tie-heavy inputs equal."""
+    geo = (8, 16, 4)
+    score = _t(rng.randn(4, *small, 20).astype(np.float32), cuda)
+    sm = _t(rng.randn(*score.shape[:3], 2).astype(np.float32), cuda)
+    embed = rng.randn(21, 20).astype(np.float32)
+    uv = unseen_mask_vector(21, [1, 13])
+    before = _kernels.launch_counts["szn_fused"]
+    got = tsz.infer_labels_szn_fused(score, sm, embed, uv, out, None, geo)
+    again = tsz.infer_labels_szn_fused(score, sm, embed, uv, out, None, geo)
+    assert _kernels.launch_counts["szn_fused"] == before + 2
+    want = tsz.infer_labels_szn_fused(score.cpu(), sm.cpu(), embed, uv, out,
+                                      None, geo)
+    assert got.shape == (4, *out) and torch.equal(got, again)
+    assert (got.cpu() != want).float().mean().item() < 1e-4
+    parts = tsz._partition(~uv, uv)
+    aug = _tie_heavy_aug(rng, 21, cuda)
+    h8, w8 = aug.shape[1], aug.shape[2]
+    o = ((h8 - 1) * 8 + 12, (w8 - 1) * 8 + 12)
+    assert torch.equal(tsz.szn_labels(aug, *parts, *o, None, geo),
+                       tsz.szn_labels_plain(aug, *parts, *o, None, geo))
+
+
 def test_szn_kernel_refuses_malformed_partition(cuda):
     """The wrapper reads the partition on the host: a CUDA mask, a class in
     both partitions or a mask of another width raises before any launch."""

@@ -8,6 +8,7 @@ and, with --viz, a color overlay:
     python -m zeroshotsemanticsegmentation_tpu_torch.cli.predict \\
         --checkpoint <log dir>/best --images <dir> --out <dir> \\
         -c 15 [--viz] [--batch_size 8] [--int8] [--device cuda]
+        [--arch fcn32s|fcn8s|deeplabv2_r101]
 
 The preset (-c) supplies the dataset, embeddings and unseen split, as in
 training; the checkpoint's `upscore_trained` routes the seenmask gate
@@ -20,6 +21,12 @@ The batching works on arrays (`predict_arrays`: pad each image to the
 static bucket, pad the tail batch to the static batch, predict, crop), so
 it runs without Pillow; only the PNG reading and writing around it needs
 Pillow, imported when `run_predict` runs.
+
+`--arch deeplabv2_r101` serves DeepLab-v2 ResNet-101 with the SZN heads
+(`models/deeplab.py`) from a file holding its state dict (bare, or under
+``model_state_dict``; torchvision's module names), in a bucket whose sides
+are multiples of 8 (its output stride); the reference's FCN checkpoints do
+not apply to it.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ from zeroshotsemanticsegmentation_tpu_torch.cli.train import _merge_params
 from zeroshotsemanticsegmentation_tpu_torch.configs import get_config
 from zeroshotsemanticsegmentation_tpu_torch.data.assets import (
     class_names, load_class_embeddings)
-from zeroshotsemanticsegmentation_tpu_torch.models import FCN8s, FCN32s
+from zeroshotsemanticsegmentation_tpu_torch.models import (
+    DeepLabV2ResNet101, FCN8s, FCN32s)
 from zeroshotsemanticsegmentation_tpu_torch.models.ref_import import (
     is_reference_checkpoint, load_reference_checkpoint)
 from zeroshotsemanticsegmentation_tpu_torch.serving import make_szn_predictor
@@ -75,9 +83,29 @@ def build_predictor(cfg, checkpoint_path: str, *, int8: bool = False,
             "its own checkpoints and the reference's torch.save files; the "
             "JAX package's orbax directories are not read (convert one "
             "with its cli.export)")
-    model_cls = FCN8s if cfg.arch == "fcn8s" else FCN32s
     dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else \
         torch.float32
+    embeddings = load_class_embeddings(cfg.dataset, cfg.embed_dim,
+                                       n_classes=cfg.num_classes)
+    names = class_names(cfg.dataset, cfg.num_classes)
+    if cfg.arch == "deeplabv2_r101":
+        if cfg.bucket[0] % 8 or cfg.bucket[1] % 8:
+            raise ValueError(f"deeplabv2_r101 serves buckets whose sides are "
+                             f"multiples of 8 (its output stride), got "
+                             f"{tuple(cfg.bucket)}")
+        model = DeepLabV2ResNet101(
+            cfg.head_channels, dtype=dtype, channel_scale=cfg.channel_scale,
+            generator=torch.Generator().manual_seed(cfg.seed), device=dev)
+        blob = torch.load(checkpoint_path, map_location="cpu",
+                          weights_only=True)
+        merged = _merge_params(model.state_dict(),
+                               blob.get("model_state_dict", blob),
+                               logger=_StdoutLogger())
+        predict = make_szn_predictor(model, merged, embeddings,
+                                     list(cfg.val_unseen), int8=int8,
+                                     device=dev)
+        return predict, names, False
+    model_cls = FCN8s if cfg.arch == "fcn8s" else FCN32s
     model = model_cls(cfg.head_channels, dtype=dtype,
                       channel_scale=cfg.channel_scale,
                       prune_pad=cfg.prune_pad,
@@ -94,13 +122,10 @@ def build_predictor(cfg, checkpoint_path: str, *, int8: bool = False,
     merged = _merge_params(model.state_dict(), restored["params"],
                            logger=_StdoutLogger())
     upscore_trained = restored["upscore_trained"]
-    embeddings = load_class_embeddings(cfg.dataset, cfg.embed_dim,
-                                       n_classes=cfg.num_classes)
     predict = make_szn_predictor(
         model, merged, embeddings, list(cfg.val_unseen), int8=int8,
         upscore_trained=upscore_trained, device=dev)
-    return predict, class_names(cfg.dataset, cfg.num_classes), \
-        bool(upscore_trained)
+    return predict, names, bool(upscore_trained)
 
 
 def predict_arrays(predict, images, *, bucket, batch_size: int,
@@ -192,7 +217,8 @@ def main(argv=None):
     p.add_argument("--bucket", type=int, default=None,
                    help="static HxW bucket (default: preset's)")
     p.add_argument("--context_classes", type=int, choices=[33, 59])
-    p.add_argument("--arch", type=str, choices=["fcn32s", "fcn8s"],
+    p.add_argument("--arch", type=str,
+                   choices=["fcn32s", "fcn8s", "deeplabv2_r101"],
                    help="model architecture (default: preset's; must match "
                         "the checkpoint)")
     p.add_argument("--viz", action="store_true",

@@ -137,6 +137,9 @@ def run_experiment(cfg, *, preset: int = 0, name: str | None = None,
     runs on the mesh's device; rank 0 alone writes the log directory (its
     name, with its time stamp, is rank 0's).
     """
+    if cfg.arch == "deeplabv2_r101":
+        raise ValueError("arch 'deeplabv2_r101' serves only (cli.predict); "
+                         "the trainers train FCN-32s and FCN-8s")
     check_world_size(cfg, 1 if mesh is None else mesh.size)
     dev = resolve_device(device) if mesh is None else mesh.device
     main_rank = mesh is None or mesh.rank == 0

@@ -8,7 +8,9 @@ One reading differs from the JAX package, about the device: `fused_block1`
 and `fused_eval` keep their values, but "auto" means "the model is on a
 CUDA device" (the card's kernels), where the JAX package reads "the backend
 is a TPU". `data_parallel` x `model_parallel` above 1 is a mesh run, one
-process per rank (`cli/train.py`, `parallel/mesh.py`).
+process per rank (`cli/train.py`, `parallel/mesh.py`). `arch` also takes
+"deeplabv2_r101" (DeepLab-v2 ResNet-101, `models/deeplab.py`), which the
+JAX package lacks: the predict CLI serves it, the trainers refuse it.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ class Config:
     forced_unseen: bool = False
     load_fcn_path: str = ""
     # extensions of the JAX package (no reference equivalent)
-    arch: str = "fcn32s"                   # fcn32s | fcn8s
+    arch: str = "fcn32s"             # fcn32s | fcn8s | deeplabv2_r101
     batch_size: int = 1
     eval_batch_size: int = 1
     bucket: tuple = (512, 512)
@@ -160,7 +162,7 @@ def validate_config(cfg: Config) -> None:
         raise ValueError(f"unknown fcn_loss {cfg.fcn_loss!r}")
     if cfg.fcn_optim not in ("sgd", "adam"):
         raise ValueError(f"unknown fcn_optim {cfg.fcn_optim!r}")
-    if cfg.arch not in ("fcn32s", "fcn8s"):
+    if cfg.arch not in ("fcn32s", "fcn8s", "deeplabv2_r101"):
         raise ValueError(f"unknown arch {cfg.arch!r}")
     if cfg.one_hot_embed and cfg.embed_dim != cfg.num_classes:
         raise ValueError(

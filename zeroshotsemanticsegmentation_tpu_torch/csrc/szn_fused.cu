@@ -13,6 +13,10 @@
 //   seen   = first argmax over k of (seen[k] ? v[k] : fill[k]);
 //   unseen = first argmax over k of (unseen[k] ? v[k] : fill[k]);
 //   label  = v[K] >= 0 ? unseen : seen                      (int32).
+// The geometry named here is FCN-32s's; the kernel reads the upsample only
+// through the host's tap tables, so any geometry whose rows have two adjacent
+// taps and whose runs of 4 outputs reach at most 3 tap columns runs
+// unchanged (DeepLab-v2's x8: stride 8, kernel 16, crop 4, from 1/8 heads).
 // fill is 0.0 for excluded classes (the reference's zeroed-row quirk) and
 // -1e30 for the gate row, which takes part in neither partition. The
 // wrapper (`ops/szn_fused.py`) checks on the host that the partition has

@@ -21,7 +21,9 @@ libraries `conv1_1` (K8), `pool_bwd` (K9), `rowdot` (K10b) and
 `conv7x7_igemm` (fc6's forward) are the wrappers' names. K7 (`pdot`) counts
 every launch under `pdot` and each variant's under `pdot_<variant>` as
 well. `native_batches` is no kernel's: it counts the batches the native
-decoder (`data/native.py`) wrote, added by `data.pipeline.BatchLoader`.
+decoder (`data/native.py`) wrote, added by `data.pipeline.BatchLoader`;
+nor is `bn_folds`: the frozen batch norms `models.deeplab` folded into
+its convolutions, one a load of weights.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ launch_counts = {name: 0 for name in (
     "costail_fwd", "costail_bwd", "pdot", "pdot_fp32", "pdot_fp32_narrow",
     "pdot_fp32_scalar", "pdot_fp32_narrow_scalar", "pdot_wmma",
     "pdot_tma", "pdot_narrow", "conv1_1_pairs", "pool_bwd", "rowdot",
-    "conv7x7_igemm", "native_batches")}
+    "conv7x7_igemm", "native_batches", "bn_folds")}
 build_logs: dict[str, str] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}

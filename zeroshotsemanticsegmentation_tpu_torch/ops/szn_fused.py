@@ -1,6 +1,10 @@
-"""Fused SZN inference: class projection + x32 bilinear upsample + stitched
-argmax from the 1/32-resolution heads; the full-resolution score volume
-never exists.
+"""Fused SZN inference: class projection + bilinear upsample + stitched
+argmax from the raw heads; the full-resolution score volume never exists.
+
+The upsample is the model's fixed transposed-convolution geometry
+(stride, kernel, crop): FCN-32s's x32 (32, 64, 19), the default, or
+DeepLab-v2's x8 (8, 16, 4) from its 1/8 heads. Every call takes it as
+`geometry`; the tap tables are cached per geometry and lengths.
 
 Algebra (as in the JAX package): the upscore is linear and per channel, and
 the class projection is linear per pixel, so they commute,
@@ -10,9 +14,10 @@ the class projection is linear per pixel, so they commute,
 and the per-pixel score norm does not change an argmax. The seenmask gate
 likewise: sign(upsample(s0 - s1)) decides the seenmask argmax. So:
 
-  1. pre-stage (plain PyTorch, tiny tensors): fp32 projection of the raw
+  1. pre-stage (plain PyTorch, small tensors): fp32 projection of the raw
      head onto the row-normalized embeddings, the gate s0 - s1 appended as
-     row K -> `aug` (B, h32, w32, K+1);
+     row K -> `aug` (B, h32, w32, K+1) (h32, w32: the heads' sides, 1/32
+     or 1/8 of the image's);
   2. `szn_labels`: the kernel `csrc/szn_fused.cu` (on a CUDA tensor) or its
      plain version `szn_labels_plain` (on a CPU tensor) upsamples each row
      to the output size and takes the masked seen/unseen first-max argmaxes
@@ -43,9 +48,8 @@ from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
 from zeroshotsemanticsegmentation_tpu_torch.ops.bilinear import (
     upsample_matrix)
 
-_UPSAMPLE_STRIDE = 32
-_UPSAMPLE_KERNEL = 64
-_CROP_OFFSET = 19
+# (stride, kernel, crop) of the fixed bilinear upsample: FCN-32s's x32
+FCN32S_GEOMETRY = (32, 64, 19)
 _GATE_FILL = -1e30
 
 _ARGTYPES = [_kernels.P] * 7 + [_kernels.I] * 14 + [_kernels.P]
@@ -60,21 +64,23 @@ K1_MASK_WORDS = 64      # 64-bit words of the seen mask: 4096 real classes
 K1_SMEM_LIMIT = 232448  # shared memory a block may opt into on an H100
 
 
-def _matrix(in_len: int, out_len: int, device) -> torch.Tensor:
-    return torch.tensor(upsample_matrix(
-        in_len, _UPSAMPLE_STRIDE, _UPSAMPLE_KERNEL, _CROP_OFFSET,
-        out_len), device=device)
+def _matrix(in_len: int, out_len: int, device,
+            geometry: tuple = FCN32S_GEOMETRY) -> torch.Tensor:
+    stride, kernel, crop = geometry
+    return torch.tensor(upsample_matrix(in_len, stride, kernel, crop,
+                                        out_len), device=device)
 
 
 @functools.lru_cache(maxsize=64)
-def _tap_table(in_len: int, out_len: int):
+def _tap_table(in_len: int, out_len: int,
+               geometry: tuple = FCN32S_GEOMETRY):
     """The interpolation matrix as a 2-tap table: first input index (int32,
     (out_len,)) and the two weights (fp32, (2, out_len)), numpy. Raises if a
     row has taps that are not two adjacent entries, or if a run of K1_RUN
     output coordinates (K1's register block) spans more than two first
-    indices (three tap columns)."""
-    m = upsample_matrix(in_len, _UPSAMPLE_STRIDE, _UPSAMPLE_KERNEL,
-                        _CROP_OFFSET, out_len)
+    indices (three tap columns). `geometry` = (stride, kernel, crop)."""
+    stride, kernel, crop = geometry
+    m = upsample_matrix(in_len, stride, kernel, crop, out_len)
     nz = m != 0
     i0 = np.where(nz.any(axis=1), nz.argmax(axis=1), 0)
     i1 = np.minimum(i0 + 1, in_len - 1)
@@ -97,13 +103,14 @@ def _tap_table(in_len: int, out_len: int):
     return i0.astype(np.int32), w
 
 
-def _taps(in_len: int, out_len: int, device, rows: tuple | None = None):
-    """`_tap_table` on `device`, copied there once; with `rows` = (r0, r1)
-    the entries of output coordinates [r0, r1) alone (weights still (2,
-    r1 - r0), the kernel's layout)."""
+def _taps(in_len: int, out_len: int, device, rows: tuple | None = None,
+          geometry: tuple = FCN32S_GEOMETRY):
+    """`_tap_table` on `device`, copied there once per geometry, lengths
+    and rows; with `rows` = (r0, r1) the entries of output coordinates
+    [r0, r1) alone (weights still (2, r1 - r0), the kernel's layout)."""
     r0, r1 = (0, out_len) if rows is None else rows
-    i0, w = _tap_table(in_len, out_len)
-    key = (in_len, out_len, r0, r1)
+    i0, w = _tap_table(in_len, out_len, geometry)
+    key = (in_len, out_len, r0, r1, *geometry)
     return (device_const(("szn_taps_i0", *key),
                          lambda: np.ascontiguousarray(i0[r0:r1]), device),
             device_const(("szn_taps_w", *key),
@@ -220,19 +227,23 @@ def _rows(out_h: int, rows) -> tuple:
 
 
 def szn_labels_plain(aug: torch.Tensor, seen, unseen, fill, out_h: int,
-                     out_w: int, rows: tuple | None = None) -> torch.Tensor:
+                     out_w: int, rows: tuple | None = None,
+                     geometry: tuple = FCN32S_GEOMETRY) -> torch.Tensor:
     """Plain version of the kernel: interpolation-matrix upsample of every
     row of `aug` (B, h32, w32, K+1) to (B, out_h, out_w, K+1) in fp32,
     masked first-max argmaxes (`seen`, `unseen`, `fill` over K+1 rows,
     host data or tensors), gate select -> (B, out_h, out_w) int32. With
-    `rows` = (r0, r1): output rows [r0, r1) alone, (B, r1 - r0, out_w)."""
+    `rows` = (r0, r1): output rows [r0, r1) alone, (B, r1 - r0, out_w).
+    `geometry` = (stride, kernel, crop) of the upsample."""
     _, h32, w32, _ = aug.shape
     r0, r1 = _rows(out_h, rows)
     dev = aug.device
     seen, unseen = _on(seen, torch.int32, dev), _on(unseen, torch.int32, dev)
     fill = _on(fill, torch.float32, dev)
-    up = torch.einsum("oh,bhwk->bowk", _matrix(h32, out_h, dev)[r0:r1], aug)
-    up = torch.einsum("pw,bowk->bopk", _matrix(w32, out_w, dev), up)
+    up = torch.einsum("oh,bhwk->bowk",
+                      _matrix(h32, out_h, dev, geometry)[r0:r1], aug)
+    up = torch.einsum("pw,bowk->bopk", _matrix(w32, out_w, dev, geometry),
+                      up)
     seen_arg = torch.argmax(torch.where(seen != 0, up, fill), dim=-1)
     unseen_arg = torch.argmax(torch.where(unseen != 0, up, fill), dim=-1)
     return torch.where(up[..., -1] >= 0, unseen_arg, seen_arg).to(
@@ -240,7 +251,8 @@ def szn_labels_plain(aug: torch.Tensor, seen, unseen, fill, out_h: int,
 
 
 def szn_labels(aug: torch.Tensor, seen, unseen, fill, out_h: int,
-               out_w: int, rows: tuple | None = None) -> torch.Tensor:
+               out_w: int, rows: tuple | None = None,
+               geometry: tuple = FCN32S_GEOMETRY) -> torch.Tensor:
     """Kernel wrapper: launches `csrc/szn_fused.cu` on a CUDA tensor; a CPU
     tensor takes `szn_labels_plain`. `seen`, `unseen` and `fill` are host
     data (numpy or CPU tensors, as `_partition` returns them): the wrapper
@@ -249,9 +261,12 @@ def szn_labels(aug: torch.Tensor, seen, unseen, fill, out_h: int,
     kernel refuses a plan past the card's limits (the check raises).
     `rows` = (r0, r1): output rows [r0, r1) alone (a band of a
     height-sharded image): the kernel reads rows only through the row tap
-    tables and `out_h`, so it is given those tables' rows and r1 - r0."""
+    tables and `out_h`, so it is given those tables' rows and r1 - r0.
+    `geometry` = (stride, kernel, crop) of the upsample: the kernel sees it
+    only through the tap tables."""
     if not aug.is_cuda:
-        return szn_labels_plain(aug, seen, unseen, fill, out_h, out_w, rows)
+        return szn_labels_plain(aug, seen, unseen, fill, out_h, out_w, rows,
+                                geometry)
     if aug.dim() != 4 or aug.dtype != torch.float32 \
             or not aug.is_contiguous():
         raise ValueError("szn_labels: aug must be a contiguous float32 "
@@ -265,8 +280,9 @@ def szn_labels(aug: torch.Tensor, seen, unseen, fill, out_h: int,
     words, n_seen, fx_seen, fx_unseen = kernel_partition(seen, unseen, fill)
     dev = aug.device
     r0, r1 = _rows(out_h, rows)
-    row_i0, row_w = _taps(h32, out_h, dev, (r0, r1))
-    col_i0, col_w = _taps(w32, out_w, dev)
+    geometry = tuple(geometry)
+    row_i0, row_w = _taps(h32, out_h, dev, (r0, r1), geometry)
+    col_i0, col_w = _taps(w32, out_w, dev, None, geometry)
     out_h = r1 - r0
     out = torch.empty((b, out_h, out_w), dtype=torch.int32, device=dev)
     if out.numel() == 0:
@@ -321,12 +337,15 @@ def _partition(cls_seen, cls_unseen):
 def infer_labels_szn_fused(score_small: torch.Tensor,
                            seenmask_small: torch.Tensor, embeddings,
                            unseen_class_mask, out_hw: tuple[int, int],
-                           rows: tuple | None = None) -> torch.Tensor:
-    """SZN labels from the raw (1/32-res) heads (model mode='raw').
+                           rows: tuple | None = None,
+                           geometry: tuple = FCN32S_GEOMETRY
+                           ) -> torch.Tensor:
+    """SZN labels from the raw heads (model mode='raw').
 
     score_small (B, h32, w32, C), seenmask_small (B, h32, w32, 2) ->
     (B, out_h, out_w) int32, or output rows [r0, r1) alone with `rows`.
-    Equivalent to upsampling both heads and running
+    Equivalent to upsampling both heads with the fixed bilinear
+    `geometry` (the model's `UPSAMPLE`: stride, kernel, crop) and running
     `ops.nne.infer_labels_szn`."""
     dev = score_small.device
     e = _embed_scaled(embeddings, dev)
@@ -337,7 +356,7 @@ def infer_labels_szn_fused(score_small: torch.Tensor,
     seen, unseen, fill = _partition(~uv, uv)
     gate = (seenmask_small[..., 0] - seenmask_small[..., 1]).to(torch.float32)
     return szn_labels(_aug(score_small, gate, e), seen, unseen, fill,
-                      int(out_hw[0]), int(out_hw[1]), rows)
+                      int(out_hw[0]), int(out_hw[1]), rows, geometry)
 
 
 def infer_labels_nne_fused(score_small: torch.Tensor, embeddings,

@@ -1,13 +1,15 @@
 """Serving: batched zero-shot segmentation, images in, int32 labels out.
 
 `make_szn_predictor` returns a function from an image batch to label maps
-through the fastest pipeline: the model's raw (1/32-resolution) heads feed
-the fused projection + upsample + argmax kernel (`ops.szn_fused`), so the
-full-resolution score volumes never reach device memory. An architecture
-without raw heads (FCN-8s, whose fcn head fuses the pool3/pool4 skips at
-several resolutions) takes the unfused route: its full-resolution heads,
-then the NNE of `ops.nne`. `int8=True` swaps the FCN-32s backbone for the
-int8 forward of `models.quantized`. It runs under `torch.inference_mode()`.
+through the fastest pipeline: the model's raw heads (FCN-32s's at 1/32 of
+the image, DeepLab-v2's at 1/8) feed the fused projection + upsample +
+argmax kernel (`ops.szn_fused`) with the model's upsample geometry
+(`UPSAMPLE`: stride, kernel, crop), so the full-resolution score volumes
+never reach device memory. An architecture without raw heads (FCN-8s,
+whose fcn head fuses the pool3/pool4 skips at several resolutions) takes
+the unfused route: its full-resolution heads, then the NNE of `ops.nne`.
+`int8=True` swaps the FCN-32s backbone for the int8 forward of
+`models.quantized`. It runs under `torch.inference_mode()`.
 
 `mesh=` (`parallel.mesh`) serves a batch sharded over the data axes with
 fc6 / fc7 split over 'model': every rank is given the same global batch,
@@ -29,6 +31,9 @@ import torch
 from zeroshotsemanticsegmentation_tpu_torch import resolve_device
 from zeroshotsemanticsegmentation_tpu_torch.data.transforms import (
     prepare_images)
+from zeroshotsemanticsegmentation_tpu_torch.models.deeplab import (
+    DeepLabV2ResNet101)
+from zeroshotsemanticsegmentation_tpu_torch.models.fcn32s import FCN32s
 from zeroshotsemanticsegmentation_tpu_torch.models.quantized import (
     quantized_raw_forward)
 from zeroshotsemanticsegmentation_tpu_torch.ops.bilinear import (
@@ -37,7 +42,7 @@ from zeroshotsemanticsegmentation_tpu_torch.ops.metrics import (
     unseen_mask_vector)
 from zeroshotsemanticsegmentation_tpu_torch.ops.nne import infer_labels_szn
 from zeroshotsemanticsegmentation_tpu_torch.ops.szn_fused import (
-    infer_labels_szn_fused)
+    FCN32S_GEOMETRY, infer_labels_szn_fused)
 from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
     DATA_AXIS, gather_height, gather_rows, shard_batch, shard_model,
     shard_params)
@@ -85,7 +90,10 @@ def make_szn_predictor(model: torch.nn.Module,
     approximate; check its label flips against the bf16 route on your data
     first); FCN32s only, on one device or a mesh (its scales are the
     one-device ones there). An architecture without raw heads serves
-    through the unfused full-resolution route.
+    through the unfused full-resolution route. `DeepLabV2ResNet101`
+    serves on one device, without int8: its 1/8 heads take the fused
+    kernel at x8 (its `UPSAMPLE`); int8, `mesh` and `spatial` raise
+    ValueError for it.
 
     `mesh`: the model is sharded over it (`parallel.shard_model`) unless
     it already is, `params` is a full state dict, the device is the
@@ -97,11 +105,17 @@ def make_szn_predictor(model: torch.nn.Module,
     device, whole on every rank. Without a mesh `spatial=True` raises
     ValueError (the JAX package ignores the flag there).
     """
+    if isinstance(model, DeepLabV2ResNet101) and (
+            int8 or mesh is not None or spatial):
+        raise ValueError(
+            "make_szn_predictor: DeepLabV2ResNet101 serves on one device in "
+            "its compute dtype; int8, mesh and spatial serving are "
+            "implemented for FCN-32s / FCN-8s only")
     if spatial and mesh is None:
         raise ValueError("make_szn_predictor: spatial=True shards the "
                          "height over a mesh's 'data' axis; pass `mesh`")
     raw_heads = getattr(model, "RAW_HEADS", False)
-    if int8 and not raw_heads:
+    if int8 and not isinstance(model, FCN32s):
         raise ValueError(
             "int8 serving implements only the raw-heads (FCN32s) forward "
             "(models/quantized.py); it is unavailable for this architecture")
@@ -138,12 +152,17 @@ def make_szn_predictor(model: torch.nn.Module,
     unseen_vec = unseen_mask_vector(embed.shape[0], list(unseen_classes))
     unseen_vec_dev = torch.as_tensor(unseen_vec, device=dev)
     upscore_w = state.get(_UPSCORE_KEY)
+    if raw_heads and upscore_trained and upscore_w is None:
+        raise ValueError("make_szn_predictor: upscore_trained=True, but "
+                         "the model has no `seenmask_upscore`: its gate "
+                         "takes the fixed bilinear upsample")
+    geometry = getattr(model, "UPSAMPLE", FCN32S_GEOMETRY)
 
     def labels(f_raw, s_raw, out_hw, rows) -> torch.Tensor:
-        """Labels from the raw heads (FCN32s)."""
+        """Labels from the raw heads (FCN32s, DeepLabV2ResNet101)."""
         if not upscore_trained:
             return infer_labels_szn_fused(f_raw, s_raw, embed, unseen_vec,
-                                          out_hw, rows)
+                                          out_hw, rows, geometry)
         # trained upscore: the exact gate at full resolution through the
         # model's own ConvTranspose; the classes still take the fused kernel
         # (an always-seen / always-unseen gate restricts its partition)
