@@ -30,7 +30,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
    weights) served through make_szn_predictor with the bundled pascal
    embeddings and unseen classes [1, 13]; a few requests (float32 512x512,
    uint8, 500x375), both kernels' launch counts, labels vs the same predictor
-   through the plain versions (fp32), vs the unfused full-resolution NNE
+   through the plain versions (fp32; the ring pads' concatenations too),
+   vs the unfused full-resolution NNE
    reference, and the trained-upscore route; the serving bf16 bar
    (scripts/torch_serving_bar.py): bf16 labels through the kernels at most
    2x as far (flip rate) from the fp32 labels as bf16 labels with block 1
@@ -260,7 +261,21 @@ Phases, each of which passes or ends the script with a non-zero exit:
    the x8 geometry (stride 8, kernel 16, crop 4) on (16, 64, 64, K+1)
    heads vs its plain version (flips < 1e-4, one launch a call, two calls
    bit-equal), its time beside `benchmark.bounds.k1_bound_s` at
-   h8 = w8 = 64 in its own kernels-line row.
+   h8 = w8 = 64 in its own kernels-line row;
+30. the ring pads alone (`phase_ring_pad`): `csrc/ring_pad.cu` at the ten
+   pads of an FCN-32s forward at the 512 bucket (blocks 2-4, read from
+   `run_pruned_blocks`), bf16, B=16 and B=64: one launch a pad, each bit-
+   equal to its plain version; the forward's pads by CUDA events and
+   device time beside their bytes bound and the plain version's time, and
+   each pad's device time; `ring_sum` over the same pads at B=24, each
+   sum within bf16's rounding plus 1e-5 of the ring's sum of magnitudes
+   of its plain version's fp32 sum. Its kernels-line row adds the
+   serving, stage-1 and train-CLI launches, and each path's of phases
+   21-27, where every path that ran the pruned blocks on the card (K2 or
+   K3 launched, or int8) launched `ring_pad`, and every one that ran K4
+   `ring_sum`. Phases 5, 9 and 21's plain runs take the pads'
+   concatenations (`kernel_takes` patched), so their bars hold the pads
+   too.
 
 The script reaches no network: `urllib.request.urlretrieve` raises in it,
 so the train CLI's VGG16 fetch of a fresh real-data run (phase 24 (f))
@@ -3714,7 +3729,7 @@ def phase_bench(dev, tmp: str, card: str, log, require) -> dict:
     programs = {"serving": bench.bench_inference, "train": bench.bench_train,
                 "loop": bench.bench_train_loop, "trained_gate": tg.run,
                 "stage2": s2.run}
-    lines, launches, fc6, seconds = {}, {}, {}, {}
+    lines, launches, fc6, ring, seconds = {}, {}, {}, {}, {}
     dotpolicy.set_dot_free(False)
     try:
         for name, fn in programs.items():
@@ -3730,6 +3745,8 @@ def phase_bench(dev, tmp: str, card: str, log, require) -> dict:
             launches[name] = {k: _kernels.launch_counts[k]
                               for k in BENCH_KERNELS}
             fc6[name] = _kernels.launch_counts["conv7x7_igemm"]
+            ring[name] = {k: _kernels.launch_counts[k]
+                          for k in ("ring_pad", "ring_sum")}
             log(json.dumps(lines[name]))
     finally:
         dotpolicy.set_dot_free(None)
@@ -3793,7 +3810,7 @@ def phase_bench(dev, tmp: str, card: str, log, require) -> dict:
             f"{forged.returncode}\n{forged.stdout}{forged.stderr}")
     seconds["gate"] = time.perf_counter() - t
     out = {"lines": lines, "launches": launches, "launches_fc6": fc6,
-           "seconds": seconds,
+           "launches_ring": ring, "seconds": seconds,
            "gate": {"record_mp_s": rec["value"],
                     "rcs": [first.returncode, second.returncode,
                             forged.returncode]},
@@ -4016,6 +4033,173 @@ def phase_deeplab(dev, kernels, embed, flip_rate, log, require) -> dict:
     return out
 
 
+RINGPAD_BATCHES = (16, 64)   # phase 30: serving's batches
+RINGPAD_TRAIN_BATCH = 24     # ring_sum at stage 1's
+
+
+def ringpad_geometry(dev) -> list:
+    """The (C, h, w, (top, bottom, left, right)) of every pad of an FCN-32s
+    forward at the 512 bucket (fused block 1, so blocks 2-4's), read from
+    `run_pruned_blocks` at VGG16's widths on one zero image."""
+    import torch
+    from zeroshotsemanticsegmentation_tpu_torch.models import pruned
+    widths = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512))
+    kbs, cin = [], 3
+    for blk in widths:
+        kbs.append([])
+        for co in blk:
+            kbs[-1].append((torch.zeros(co, cin, 3, 3, device=dev),
+                            torch.zeros(co, device=dev)))
+            cin = co
+    seen = []
+    real = pruned._padc
+
+    def spy(a, c, *pads):
+        seen.append((a.shape[1], a.shape[2], a.shape[3], tuple(pads)))
+        return real(a, c, *pads)
+
+    with mock.patch.object(pruned, "_padc", spy), torch.no_grad():
+        pruned.run_pruned_blocks(
+            kbs, torch.zeros(1, H, W, 3, device=dev), 100, torch.bfloat16,
+            fused_block1=True)
+    return seen
+
+
+def phase_ring_pad(dev, kernels, log, require) -> dict:
+    """Phase 30: the ring pads alone (`ops.ring_pad`, `csrc/ring_pad.cu`),
+    bf16, at the pads of an FCN-32s forward at the 512 bucket
+    (`ringpad_geometry`), B=16 and 64: one launch a pad, each pad bit-equal
+    to its plain version; the forward's pads in a row by CUDA events and
+    device time beside their bound (each input byte read once, each output
+    byte written once, at 3.35 TB/s) and the plain version's time (the two
+    concatenations and the channels_last copy); each pad's device time; then
+    `ring_sum` over the same pads' gradients at stage 1's B=24, each sum
+    against `ring_sum_plain`'s fp32 sum (bf16's rounding plus 1e-5 of the
+    ring's sum of magnitudes)."""
+    import torch
+    from zeroshotsemanticsegmentation_tpu_torch.ops import ring_pad as rp
+    t0 = time.perf_counter()
+    geometry = ringpad_geometry(dev)
+    require(len(geometry) == 10, f"FCN-32s's pads at {H}: {geometry}")
+    out = {"geometry": geometry, "rows": []}
+    gen = torch.Generator(device=dev).manual_seed(30)
+    for batch in RINGPAD_BATCHES:
+        ins = [(torch.randn(batch, h, w, ch, device=dev, generator=gen).to(
+            torch.bfloat16).permute(0, 3, 1, 2),
+            torch.randn(ch, device=dev, generator=gen).to(torch.bfloat16),
+            pads) for ch, h, w, pads in geometry]
+        nbytes = sum(2 * a.numel() + 2 * a.shape[0] * a.shape[1]
+                     * (a.shape[2] + p[0] + p[1]) * (a.shape[3] + p[2] + p[3])
+                     for a, _, p in ins)
+        kernels.reset_launch_counts()
+        equal = all(torch.equal(rp.ring_pad(a, c, *p),
+                                rp.ring_pad_plain(a, c, *p))
+                    for a, c, p in ins)
+        launched = kernels.launch_counts["ring_pad"]
+        require(launched == len(ins), f"ring_pad: {launched} launches for "
+                f"{len(ins)} pads")
+        require(equal, f"ring_pad B={batch}: a pad differs from its plain "
+                "version")
+
+        def pads_kernel():
+            for a, c, p in ins:
+                rp.ring_pad(a, c, *p)
+
+        def pads_plain():
+            for a, c, p in ins:
+                rp.ring_pad_plain(a, c, *p)
+
+        b_ms, b_by = bound(nbytes, 0, PEAK_BF16_FLOP_S)
+        row = {"batch": batch, "gb_moved": nbytes / 1e9, "bound_ms": b_ms,
+               "bound_by": b_by, "ms": time_ms(pads_kernel, 10),
+               "plain_ms": time_ms(pads_plain, 3)}
+        # pad by pad: `device_ms` scales a kernel's mean by its launches a
+        # call, which mixes the ten sizes when the profiler drops a record
+        row["per_pad_device_ms"] = [
+            device_ms(lambda a=a, c=c, p=p: rp.ring_pad(a, c, *p), 5,
+                      "ring_pad_kernel") for a, c, p in ins]
+        row["device_ms"] = sum(row["per_pad_device_ms"])
+        row["bound_share"] = b_ms / row["device_ms"]
+        log(f"[ring_pad] B={batch}: {len(ins)} pads, "
+            f"{row['gb_moved']:.3f} GB moved: {row['ms']:.4f} ms by "
+            f"events, device {row['device_ms']:.4f} "
+            f"({100 * row['bound_share']:.2f}% of its {b_ms:.4f}-ms bound, "
+            f"{b_by}); plain {row['plain_ms']:.3f} ms; per pad device "
+            + ", ".join(f"{t:.4f}" for t in row["per_pad_device_ms"]))
+        out["rows"].append(row)
+        del ins
+        torch.cuda.empty_cache()
+    grads = [torch.randn(RINGPAD_TRAIN_BATCH, h + p[0] + p[1],
+                         w + p[2] + p[3], ch, device=dev,
+                         generator=gen).to(torch.bfloat16).permute(0, 3, 1, 2)
+             for ch, h, w, p in geometry]
+
+    def sums():
+        return [rp.ring_sum(g, *p) for g, (_, _, _, p) in zip(grads, geometry)]
+
+    kernels.reset_launch_counts()
+    got = sums()
+    require(kernels.launch_counts["ring_sum"] == len(grads),
+            f"ring_sum: {kernels.launch_counts['ring_sum']} launches")
+    # each pad's sum vs the plain version's fp32 sum of the same gradient:
+    # within bf16's rounding (2^-8 of the sum) plus 1e-5 of the sum of
+    # magnitudes over the ring (another order of fp32 additions)
+    worst = 0.0
+    for s_, g, (_, _, _, p) in zip(got, grads, geometry):
+        want = rp.ring_sum_plain(g.float(), *p).double()
+        scale = rp.ring_sum_plain(g.float().abs(), *p).double()
+        err = (s_.double() - want).abs()
+        bar = 2.0 ** -8 * want.abs() + 1e-5 * scale
+        worst = max(worst, (err / bar).max().item())
+    require(worst <= 1, f"ring_sum B={RINGPAD_TRAIN_BATCH}: off its plain "
+            f"version by {worst:.3f} of the bar")
+    out["ring_sum"] = {"batch": RINGPAD_TRAIN_BATCH,
+                       "err_over_bar": worst, "ms": time_ms(sums, 10),
+                       "device_ms": sum(
+                           device_ms(lambda g=g, p=p: rp.ring_sum(g, *p), 5,
+                                     "ring_sum")
+                           for g, (_, _, _, p) in zip(grads, geometry))}
+    log(f"[ring_pad] ring_sum B={RINGPAD_TRAIN_BATCH}, the {len(grads)} "
+        f"pads: {out['ring_sum']['ms']:.4f} ms by events, device "
+        f"{out['ring_sum']['device_ms']:.4f}; off the plain sums by "
+        f"{worst:.4f} of the bar")
+    del grads
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[ring_pad] phase 30: {out['seconds']:.1f} s")
+    return out
+
+
+RING_KEYS = ("block1_fused", "block1_train_fwd", "block1_train_bwd",
+             "ring_pad", "ring_sum")
+
+
+def ring_launches(helpers: dict, parity: dict) -> dict:
+    """K2, K3, K4, `ring_pad` and `ring_sum`'s launches on each path of
+    phases 21-27: `helpers` maps a phase to its one-kernel launch function
+    (a tree of counts by path), `parity` is phase 26's counts by part.
+    Keyed by the path through the tree ("21/launches_int8_serve", ...)."""
+
+    def leaves(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, f"{path}/{k}")
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                yield from leaves(v, f"{path}/{i}")
+        else:
+            yield path, tree
+
+    table = {}
+    for phase, fn in helpers.items():
+        by_key = {k: dict(leaves(fn(k), phase)) for k in RING_KEYS}
+        for path in by_key["ring_pad"]:
+            table[path] = {k: by_key[k][path] for k in RING_KEYS}
+    for part, counts in parity.items():
+        table[f"26/{part}"] = {k: counts.get(k, 0) for k in RING_KEYS}
+    return table
+
+
 def main() -> None:
     try:
         import torch
@@ -4042,6 +4226,7 @@ def main() -> None:
         from zeroshotsemanticsegmentation_tpu_torch.ops import conv7x7 as c7
         from zeroshotsemanticsegmentation_tpu_torch.ops import dotpolicy
         from zeroshotsemanticsegmentation_tpu_torch.ops import pdot as pd
+        from zeroshotsemanticsegmentation_tpu_torch.ops import ring_pad as rp
         from zeroshotsemanticsegmentation_tpu_torch.ops import rowdot as rd
         from zeroshotsemanticsegmentation_tpu_torch.train import (
             TrainState, make_fcn_optimizer, make_fcn_train_step,
@@ -4101,10 +4286,12 @@ def main() -> None:
         "conv1_1_wgmma", "conv1_1_kernel"))
     fc6_build = kernel_build_stats(_kernels, "conv7x7_igemm",
                                    ("conv7x7_igemm",))
+    rp_build = kernel_build_stats(_kernels, "ring_pad", (
+        "ring_pad_kernel", "ring_sum_partial", "ring_sum_finish"))
     for lib, built in (("block1_train", b1_build), ("block1_fused", k2_build),
                        ("pdot", k7_build), ("costail_fused", k56_build),
                        ("szn_fused", k1_build), ("conv1_1", k8_build),
-                       ("conv7x7_igemm", fc6_build)):
+                       ("conv7x7_igemm", fc6_build), ("ring_pad", rp_build)):
         for fn, st in built.items():
             log(f"[build] {lib} {fn}: {st}")
     # each bf16 wgmma kernel: HGMMA in its SASS (where cuobjdump exists)
@@ -4130,10 +4317,18 @@ def main() -> None:
     @contextlib.contextmanager
     def plain_versions():
         """Routes the predictor through the kernels' plain versions (fc6's
-        forward through F.conv2d)."""
+        forward through F.conv2d, the ring pads through the
+        concatenations)."""
         with mock.patch.object(sz, "szn_labels", sz.szn_labels_plain), \
                 mock.patch.object(b1, "block1_op", b1.block1_plain), \
-                fc6_on_conv2d():
+                fc6_on_conv2d(), ring_pads_plain():
+            yield
+
+    @contextlib.contextmanager
+    def ring_pads_plain():
+        """Routes the ring pads through their plain version (the
+        concatenations and autograd) in place of `ring_pad` / `ring_sum`."""
+        with mock.patch.object(rp, "kernel_takes", lambda a: False):
             yield
 
     @contextlib.contextmanager
@@ -4154,10 +4349,10 @@ def main() -> None:
 
     @contextlib.contextmanager
     def plain_training():
-        """Routes the train step through K3-K6's plain versions: the
-        training form of block 1 with plain conv2_pool, and the fused
-        tail's plain version."""
-        with plain_block1_training(), mock.patch.object(
+        """Routes the train step through K3-K6's plain versions and the
+        ring pads': the training form of block 1 with plain conv2_pool,
+        the fused tail's plain version, the pads' concatenations."""
+        with plain_block1_training(), ring_pads_plain(), mock.patch.object(
                 train_steps, "fused_cos_tail", ct.cos_tail_plain):
             yield
 
@@ -4331,7 +4526,7 @@ def main() -> None:
         require(o.min().item() >= 0 and o.max().item() < k_cls,
                 "a label outside [0, 21)")
     require(launches["szn_fused"] > 0 and launches["block1_fused"] > 0
-            and launches["conv7x7_igemm"] > 0,
+            and launches["conv7x7_igemm"] > 0 and launches["ring_pad"] > 0,
             f"a kernel was not launched on the main path: {launches}")
     log(f"[slice] classes present in the bf16 labels: "
         f"{sorted(torch.cat([o.flatten() for o in outs]).unique().tolist())}")
@@ -5191,11 +5386,16 @@ def main() -> None:
     torch.cuda.empty_cache()
     p29 = phase_deeplab(dev, _kernels, embed, flip_rate, log, require)
 
+    # ---- 30. the ring pads alone ------------------------------------------
+    torch.cuda.empty_cache()
+    p30 = phase_ring_pad(dev, _kernels, log, require)
+
     def launches27(key: str) -> dict:
         """One kernel's launches on phase 27's programs (warm and timed
         runs)."""
-        return {"launches_bench": {name: counts[key] for name, counts in
-                                   p27["launches"].items()}}
+        return {"launches_bench": {
+            name: {**counts, **p27["launches_ring"][name]}[key]
+            for name, counts in p27["launches"].items()}}
 
     def launches26(key: str) -> dict:
         """One kernel's launches on phase 26's drift study: its training
@@ -5244,6 +5444,19 @@ def main() -> None:
         """One kernel's launches on phase 21's paths."""
         return {f"launches_{path}": counts[key]
                 for path, counts in l21.items()}
+
+    ring = ring_launches(
+        {"21": launches21, "22": launches22, "23": launches23,
+         "25": launches25, "27": launches27}, l26)
+    log("[ring_pad] phases 21-27 (K2 + K3 / K4 / ring_pad / ring_sum): "
+        + "; ".join(f"{path} {n['block1_fused'] + n['block1_train_fwd']}"
+                    f"/{n['block1_train_bwd']}/{n['ring_pad']}"
+                    f"/{n['ring_sum']}" for path, n in ring.items()))
+    missed = [path for path, n in ring.items()
+              if (n["block1_fused"] or n["block1_train_fwd"]
+                  or "int8" in path) and not n["ring_pad"]
+              or n["block1_train_bwd"] and not n["ring_sum"]]
+    require(not missed, f"the ring pads missed their kernels on {missed}")
 
     src = "zeroshotsemanticsegmentation_tpu_torch/csrc/"
     ref = "zeroshotsemanticsegmentation_tpu/ops/"
@@ -5418,6 +5631,27 @@ def main() -> None:
                    "(csrc/tma_wgmma.cuh, shared with pdot_tma); "
                    "N-panel-major tile walk",
          "build": fc6_build},
+        {"name": "ring_pad", "route": "cuda", "source": src + "ring_pad.cu",
+         "replaces": "none (the ring pads' two concatenations, "
+                     "models/pruned.py _padc; the JAX package leaves them "
+                     "to XLA)",
+         "launches": launches["ring_pad"],
+         "launches_train": {k: tlaunches[k] for k in ("ring_pad",
+                                                      "ring_sum")},
+         "launches_train_cli": {k: cli_launches[k] for k in ("ring_pad",
+                                                             "ring_sum")},
+         "launches_phases_21_27": {
+             path: {k: n[k] for k in ("ring_pad", "ring_sum")}
+             for path, n in ring.items()},
+         **{k: p30["rows"][0][k] for k in (
+             "ms", "device_ms", "bound_ms", "bound_by", "bound_share",
+             "plain_ms")},
+         "dtype": "bfloat16", "rows": p30["rows"],
+         "ring_sum": p30["ring_sum"], "geometry": p30["geometry"],
+         "design": "one block an output row, 16-byte vectors, loads before "
+                   "stores, the constant staged in shared memory; ring_sum "
+                   "in two passes of a fixed order",
+         "build": rp_build},
         {"name": "pdot", "route": "cuda", "source": src + "pdot.cu",
          "replaces": ref + "pdot.py:47",
          "launches": dlaunches["pdot"],

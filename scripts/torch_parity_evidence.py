@@ -16,7 +16,8 @@ weights:
 
   kernels  the production predictor, `serving.make_szn_predictor` (K2, K1)
   plain    the same bf16 model and geometry, K1 and K2 through their plain
-           versions and fc6's forward through F.conv2d
+           versions, fc6's forward through F.conv2d and the ring pads
+           through their concatenations
   fp32     fp32 with TF32 off, unpruned, both full-resolution heads, then
            `ops.nne.infer_labels_szn`
 
@@ -24,8 +25,9 @@ and reports each bf16 run's label flip rate against fp32's, their ratio,
 the overall / seen / unseen metric quadruples (`ops.metrics`) of all three
 against the labels with their |delta| from fp32's, and K1-K6's
 launches. The bar (PERF.md's serving bf16 bar): flips(kernels) <= 2 x
-flips(plain); K3-K6 and fc6's implicit-GEMM forward >= train_steps
-launches each, K1, K2 and fc6 >= batches.
+flips(plain); K3-K6, fc6's implicit-GEMM forward, the ring pad and its
+constant's gradient (`ring_pad`, `ring_sum`) >= train_steps launches
+each, K1, K2, fc6 and `ring_pad` >= batches, and none on the plain run.
 Images are `RandomState(seed)` normals x 40, labels uniform in [-1, 21)
 (the JAX record's data; on it a short run may predict one class
 everywhere, so the report also counts the classes predicted and the raw
@@ -64,8 +66,8 @@ N_CLASS = 21
 VAL_UNSEEN = (6, 7, 10, 14, 15, 16, 17, 18, 19, 20)  # config 14
 METRIC_ORDER = ["pxl_acc", "class_acc", "mean_iu", "fwavacc"]
 TRAIN_KEYS = ("block1_train_fwd", "block1_train_bwd", "costail_fwd",
-              "costail_bwd", "conv7x7_igemm")
-SERVE_KEYS = ("szn_fused", "block1_fused", "conv7x7_igemm")
+              "costail_bwd", "conv7x7_igemm", "ring_pad", "ring_sum")
+SERVE_KEYS = ("szn_fused", "block1_fused", "conv7x7_igemm", "ring_pad")
 # "coherent" labels: one class a PATCH x PATCH cell, its color (uniform in
 # [-COLOR, COLOR] a channel, from RandomState(seed + 1)) added to the image
 LABELS = ("random", "coherent")
@@ -74,7 +76,8 @@ COLOR = 60.0
 KERNEL_NAMES = {"szn_fused": "K1", "block1_fused": "K2",
                 "block1_train_fwd": "K3", "block1_train_bwd": "K4",
                 "costail_fwd": "K5", "costail_bwd": "K6",
-                "conv7x7_igemm": "fc6"}
+                "conv7x7_igemm": "fc6", "ring_pad": "ring_pad",
+                "ring_sum": "ring_sum"}
 
 
 def card_line() -> str | None:
@@ -109,6 +112,7 @@ def run_bf16(batches: int = 4, batch_size: int = 8, size: int = 512,
     from zeroshotsemanticsegmentation_tpu_torch.ops import (
         block1_fused as b1)
     from zeroshotsemanticsegmentation_tpu_torch.ops import conv7x7 as c7
+    from zeroshotsemanticsegmentation_tpu_torch.ops import ring_pad as rp
     from zeroshotsemanticsegmentation_tpu_torch.ops import szn_fused as sz
     from zeroshotsemanticsegmentation_tpu_torch.ops.metrics import (
         hist_to_metrics, unseen_mask_vector, zeroshot_hists)
@@ -195,7 +199,8 @@ def run_bf16(batches: int = 4, batch_size: int = 8, size: int = 512,
         with mock.patch.object(sz, "szn_labels", sz.szn_labels_plain), \
                 mock.patch.object(b1, "block1_op", b1.block1_plain), \
                 mock.patch.object(c7, "igemm_route",
-                                  lambda h, cout: False):
+                                  lambda h, cout: False), \
+                mock.patch.object(rp, "kernel_takes", lambda a: False):
             return predict(images)
 
     runs = {"kernels": predict, "plain": predict_plain, "fp32": predict_fp32}

@@ -20,6 +20,7 @@ from zeroshotsemanticsegmentation_tpu_torch.ops import costail_fused as tct
 from zeroshotsemanticsegmentation_tpu_torch.ops import dotpolicy as tdp
 from zeroshotsemanticsegmentation_tpu_torch.ops import pdot as tpd
 from zeroshotsemanticsegmentation_tpu_torch.ops import pool_bwd as tpb
+from zeroshotsemanticsegmentation_tpu_torch.ops import ring_pad as rp
 from zeroshotsemanticsegmentation_tpu_torch.ops import rowdot as trd
 from zeroshotsemanticsegmentation_tpu_torch.ops import szn_fused as tsz
 from zeroshotsemanticsegmentation_tpu_torch.ops.metrics import (
@@ -818,6 +819,155 @@ def test_rowdot_kernel_matches_plain(rng, cuda, shape):
     a1 = flat[1:].view(shape)
     assert a1.data_ptr() % 16 != 0
     assert torch.equal(trd.rowdot(a1, b), got)
+
+
+# ---- the ring pads (csrc/ring_pad.cu) --------------------------------------
+
+# (top, bottom, left, right): the ring pad, its band-edge forms and the
+# alignment pads of `models.pruned.run_pruned_blocks`
+RING_PADS = [(2, 2, 2, 2), (2, 0, 2, 2), (0, 2, 2, 2), (1, 0, 1, 0),
+             (0, 1, 0, 1), (0, 0, 0, 1)]
+
+
+def _ring_input(cuda, dtype, ch, layout, h=13, w=17):
+    """(2, ch, h, w) NCHW in the layout named: channels_last, NCHW (the
+    kernel reads its channels_last copy), a column slice of an NHWC tensor
+    (read in place, rows strided), or channels_last from a storage offset
+    that is not 16-byte aligned (one element a thread)."""
+    g = torch.Generator(device=cuda).manual_seed(ch)
+    nhwc = torch.randn(2, h, w + 1, ch, device=cuda, generator=g).to(dtype)
+    if layout == "nhwc":
+        return nhwc[:, :, :w].contiguous().permute(0, 3, 1, 2)
+    if layout == "nchw":
+        return nhwc[:, :, :w].permute(0, 3, 1, 2).contiguous()
+    if layout == "column_slice":
+        return nhwc[:, :, :w].permute(0, 3, 1, 2)
+    flat = torch.cat([torch.zeros(1, device=cuda, dtype=dtype),
+                      nhwc[:, :, :w].flatten()])
+    a = flat[1:].view(2, h, w, ch).permute(0, 3, 1, 2)
+    assert a.data_ptr() % 16 != 0
+    return a
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ch", [8, 64, 512, 3])
+@pytest.mark.parametrize("layout", ["nhwc", "nchw", "column_slice",
+                                    "unaligned"])
+def test_ring_pad_kernel_equals_plain(cuda, dtype, ch, layout):
+    """`ring_pad` vs its plain version (the two concatenations and the
+    channels_last copy), bit for bit, at odd h and w, for every pad form;
+    one launch a call, channels_last out."""
+    a = _ring_input(cuda, dtype, ch, layout)
+    c = torch.randn(ch, device=cuda).to(dtype)
+    for pads in RING_PADS:
+        before = _kernels.launch_counts["ring_pad"]
+        got = rp.ring_pad(a, c, *pads)
+        assert _kernels.launch_counts["ring_pad"] == before + 1
+        want = rp.ring_pad_plain(a, c, *pads)
+        torch.cuda.synchronize()
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.equal(got, want), pads
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["channels_last", "nchw", "expanded"])
+def test_ring_sum_kernel_matches_the_sum_over_the_ring(cuda, dtype, layout):
+    """`ring_sum` vs the fp64 sum over the ring (a mask): fp32 within
+    1e-5 of the sum of magnitudes (another order of fp32 additions), bf16
+    within one bf16 ulp of the fp32 sum plus that; two calls bit-equal (a
+    fixed order); one launch a call; an expanded (stride 0) gradient too."""
+    g = torch.randn(3, 64, 20, 23, device=cuda).to(dtype)
+    if layout == "channels_last":
+        g = g.contiguous(memory_format=torch.channels_last)
+    elif layout == "expanded":
+        g = g[:, :, :1, :1].expand(3, 64, 20, 23)
+    for pads in RING_PADS:
+        top, bottom, left, right = pads
+        mask = torch.ones(20, 23, dtype=torch.bool, device=cuda)
+        mask[top:20 - bottom, left:23 - right] = False
+        want = (g.double() * mask).sum(dim=(0, 2, 3))
+        scale = (g.double().abs() * mask).sum(dim=(0, 2, 3))
+        before = _kernels.launch_counts["ring_sum"]
+        got = rp.ring_sum(g, *pads)
+        again = rp.ring_sum(g, *pads)
+        assert _kernels.launch_counts["ring_sum"] == before + 2
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (64,)
+        assert torch.equal(got, again)
+        bar = 1e-5 * scale + (2.0 ** -8 * want.abs()
+                              if dtype == torch.bfloat16 else 0)
+        assert bool(((got.double() - want).abs() <= bar).all()), pads
+
+
+def test_ring_pad_refuses_what_it_cannot_run(cuda):
+    """Every CUDA tensor takes the kernel's route; the kernel refuses a
+    dtype other than bf16 and fp32 (so does `_padc` on the card), a
+    constant on another device and a CPU input, before any launch."""
+    from zeroshotsemanticsegmentation_tpu_torch.models import pruned
+    a = torch.zeros(1, 8, 4, 4, device=cuda, dtype=torch.float16)
+    before = dict(_kernels.launch_counts)
+    assert rp.kernel_takes(a) and rp.kernel_takes(a.float())
+    assert not rp.kernel_takes(a.float().cpu())
+    with pytest.raises(ValueError, match="ring_pad"):
+        rp.ring_pad(a, torch.zeros(8, device=cuda), 1, 1, 1, 1)
+    with pytest.raises(ValueError, match="ring_pad"):
+        rp.ring_pad(a.float(), torch.zeros(8), 1, 1, 1, 1)
+    with pytest.raises(ValueError, match="ring_pad"):
+        pruned._padc(a, torch.ones(8, device=cuda), 1, 1, 1, 1)
+    with pytest.raises(ValueError, match="ring_sum"):
+        rp.ring_sum(torch.zeros(1, 8, 6, 6, device=cuda,
+                                dtype=torch.float16), 1, 1, 1, 1)
+    assert _kernels.launch_counts == before
+
+
+def test_fcn32s_ring_pads_launch_the_kernels(cuda, monkeypatch):
+    """A 1/8-width bf16 FCN-32s at B=2, 96x96: one `ring_pad` launch a
+    `_padc` call (a `model.ringpad` span with `kernel` 1) in the forward;
+    in a forward and backward, one `ring_sum` a pad (every ring constant
+    is differentiated to the weights); the fp32 gradients equal the plain
+    route's to 1e-5 (the constants' sums in another order; TF32 off)."""
+    from zeroshotsemanticsegmentation_tpu_torch.models import FCN32s
+    from zeroshotsemanticsegmentation_tpu_torch.utils.profiling import (
+        clear_spans, force_tracing, spans)
+    x = torch.randn(2, 96, 96, 3, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    x = x * 40
+
+    def model(dtype):
+        return FCN32s(20, dtype=dtype, channel_scale=1 / 8, dropout_rate=0.0,
+                      device=cuda, generator=torch.Generator().manual_seed(1))
+
+    m = model(torch.bfloat16)
+    clear_spans()
+    _kernels.reset_launch_counts()
+    with force_tracing(), torch.no_grad():
+        m(x, mode="raw")
+    pads = [r for r in spans(0, 2 ** 63 - 1) if r.name == "model.ringpad"]
+    assert len(pads) >= 8
+    assert all(r.work["kernel"] == 1 for r in pads)
+    assert _kernels.launch_counts["ring_pad"] == len(pads)
+    assert _kernels.launch_counts["ring_sum"] == 0
+
+    def grads(route):
+        monkeypatch.setattr(rp, "kernel_takes", route)
+        mm = model(torch.float32)
+        _kernels.reset_launch_counts()
+        f, s = mm(x, mode="raw")
+        (f.square().sum() + s.sum()).backward()
+        torch.cuda.synchronize()
+        return (dict(_kernels.launch_counts),
+                {n: p.grad for n, p in mm.named_parameters()
+                 if p.grad is not None})
+
+    kernel_takes = rp.kernel_takes
+    nk, gk = grads(kernel_takes)
+    npl, gp = grads(lambda a: False)
+    assert nk["ring_pad"] == nk["ring_sum"] == len(pads)
+    assert npl["ring_pad"] == npl["ring_sum"] == 0
+    assert gk.keys() == gp.keys() and "conv2_1.weight" in gk
+    for n in gk:
+        assert _rel(gk[n], gp[n]) < 1e-5, (n, _rel(gk[n], gp[n]))
 
 
 # ---- the mesh layer (parallel/) on the card --------------------------------

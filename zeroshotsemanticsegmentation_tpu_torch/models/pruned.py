@@ -25,7 +25,9 @@ constraint with integer arithmetic before the path is used; callers fall
 back 4 -> 3 -> plain.
 
 Layout: `run_pruned_blocks` takes the (B, H, W, 3) NHWC image and returns the
-NCHW pool array (channels_last memory). Weights are torch OIHW.
+NCHW pool array (channels_last memory). Weights are torch OIHW. The ring and
+alignment pads return channels_last memory, so blocks 2-4 (their convs,
+pools and the copy into the frame) run in it throughout.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from zeroshotsemanticsegmentation_tpu_torch.ops import block1_fused
+from zeroshotsemanticsegmentation_tpu_torch.ops import block1_fused, ring_pad
 from zeroshotsemanticsegmentation_tpu_torch.utils.profiling import span
 
 # the preferred depth (through pool4), and FCN-8s's (through pool3, the
@@ -55,27 +57,18 @@ def _zero_input_response(k: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def _padc(a: torch.Tensor, c: torch.Tensor, top: int, bottom: int,
           left: int, right: int) -> torch.Tensor:
-    """Pad the spatial dims of NCHW `a` with the per-channel constant c, by
-    concatenation (pad(a - c) + c would perturb interior values): one
-    `model.ringpad` span (`utils.profiling`) counting the bytes written."""
+    """Pad the spatial dims of NCHW `a` with the per-channel constant c,
+    differentiable to both, -> channels_last memory: `ops.ring_pad.RingPad`
+    (one kernel pass; bf16 or fp32, else ValueError) on the card
+    (`ring_pad.kernel_takes`), the plain concatenation on the CPU. One
+    `model.ringpad` span (`utils.profiling`) counting the bytes written,
+    with `kernel` 1 where the kernel ran and 0 on the plain version."""
     b, ch, h, w = a.shape
+    kernel = ring_pad.kernel_takes(a)
     with span("model.ringpad", device=True, bytes=a.element_size() * b * ch
-              * (h + top + bottom) * (w + left + right)):
-        c = c.to(a.dtype)[None, :, None, None]
-
-        def band(hh, ww):
-            return c.expand(b, ch, hh, ww)
-
-        if left or right:
-            parts = ([band(h, left)] if left else []) + [a] + \
-                ([band(h, right)] if right else [])
-            a = torch.cat(parts, dim=3)
-            w += left + right
-        if top or bottom:
-            parts = ([band(top, w)] if top else []) + [a] + \
-                ([band(bottom, w)] if bottom else [])
-            a = torch.cat(parts, dim=2)
-        return a
+              * (h + top + bottom) * (w + left + right), kernel=int(kernel)):
+        pad = ring_pad.RingPad.apply if kernel else ring_pad.ring_pad_plain
+        return pad(a, c.to(a.dtype), top, bottom, left, right)
 
 
 def _expand_dim(p: torch.Tensor, dim: int, out_len: int, lo: int = 0,

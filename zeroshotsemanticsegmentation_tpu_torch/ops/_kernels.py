@@ -18,10 +18,12 @@ show that a path went through the kernel. A library may hold more than one
 kernel (`block1_train`: K3 forward and K4 backward; `costail_fused`: K5 and
 K6), so the counts have keys of their own; the keys of the one-kernel
 libraries `conv1_1` (K8), `pool_bwd` (K9), `rowdot` (K10b) and
-`conv7x7_igemm` (fc6's forward) are the wrappers' names. K7 (`pdot`) counts
-every launch under `pdot` and each variant's under `pdot_<variant>` as
-well. `native_batches` is no kernel's: it counts the batches the native
-decoder (`data/native.py`) wrote, added by `data.pipeline.BatchLoader`;
+`conv7x7_igemm` (fc6's forward) are the wrappers' names; `ring_pad` holds
+two, counted as `ring_pad` (the pad) and `ring_sum` (its constant's
+gradient). K7 (`pdot`) counts every launch under `pdot` and each
+variant's under `pdot_<variant>` as well. `native_batches` is no
+kernel's: it counts the batches the native decoder (`data/native.py`)
+wrote, added by `data.pipeline.BatchLoader`;
 nor is `bn_folds`: the frozen batch norms `models.deeplab` folded into
 its convolutions, one a load of weights.
 """
@@ -43,7 +45,8 @@ _PKG_DIR = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CSRC_DIR = osp.join(_PKG_DIR, "csrc")
 BUILD_DIR = osp.join(_PKG_DIR, "_build")
 KERNELS = ("szn_fused", "block1_fused", "block1_train", "costail_fused",
-           "pdot", "conv1_1", "pool_bwd", "rowdot", "conv7x7_igemm")
+           "pdot", "conv1_1", "pool_bwd", "rowdot", "conv7x7_igemm",
+           "ring_pad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,7 +55,8 @@ launch_counts = {name: 0 for name in (
     "costail_fwd", "costail_bwd", "pdot", "pdot_fp32", "pdot_fp32_narrow",
     "pdot_fp32_scalar", "pdot_fp32_narrow_scalar", "pdot_wmma",
     "pdot_tma", "pdot_narrow", "conv1_1_pairs", "pool_bwd", "rowdot",
-    "conv7x7_igemm", "native_batches", "bn_folds")}
+    "conv7x7_igemm", "ring_pad", "ring_sum", "native_batches",
+    "bn_folds")}
 build_logs: dict[str, str] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
