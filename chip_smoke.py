@@ -36,8 +36,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
    (scripts/torch_serving_bar.py): bf16 labels through the kernels at most
    2x as far (flip rate) from the fp32 labels as bf16 labels with block 1
    through its plain version and fc6's forward on F.conv2d;
-6. times with CUDA events: the predictor at B=64, 512x512, bf16, and each
-   kernel at its serving shape beside its plain version and its bound; K1
+6. times with CUDA events each kernel at its serving shape beside its
+   plain version and its bound (K1 and K2's from benchmark/bounds.py); K1
    also by device time, with its share of the byte bound and of the issue
    floor (5 lane-instructions a class and pixel at the card's SM clock,
    logged only), and on the SZN and NNE routes at B=64 and B=16 at every
@@ -69,9 +69,9 @@ Phases, each of which passes or ends the script with a non-zero exit:
    with K3/K4 through their plain versions and fc6's forward on F.conv2d,
    each parameter's gradient vs the fp32 step's, the kernels' error at most
    2x the plain versions';
-10. times with CUDA events: the train step at B=24, 512x512, bf16 (the JAX
-   package's bench_train configuration), its peak memory, and K3-K6 at the
-   step's shapes beside their plain versions, bounds and library calls
+10. times with CUDA events K3-K6 at the train step's shapes (B=24,
+   512x512, bf16) beside their plain versions, bounds (from
+   benchmark/bounds.py) and library calls
    (K5/K6 by CUDA events and by device time with the share of the bound
    reached, K5 also with coherent labels, both also at C=300, K=33), K4's
    route, dK2 + reduction and d(c11) steps each alone;
@@ -139,13 +139,11 @@ Phases, each of which passes or ends the script with a non-zero exit:
    K7 never); a resume (`-r <log_dir>/checkpoint -ve 2 -se 0`) with the
    parameters and Adam's moments bit-equal to the file, starting at stage
    1's step count, and one more epoch (`cli_run_and_resume`; the run's
-   checkpoint is kept for phase 21); one loop timing of FCNTrainer at
-   B=24, 512x512, the compact feed, 40 steps after a warm-up with host
-   syncs turned into errors between log flushes (two flushes inside the
-   epoch): its img/s over the epoch and in the steady window after the
-   first step, beside the bare step on the same trainer and phase 10's,
-   the loader's first batch and rate alone, the save time of one
-   checkpoint and the peak memory;
+   checkpoint is kept for phase 21); one loop of FCNTrainer at B=24,
+   512x512, the compact feed, 40 steps after a warm-up with host syncs
+   turned into errors between log flushes (two flushes inside the epoch),
+   K5 once a step and a CSV row a step, and the save time of one
+   checkpoint;
 21. FCN-8s, the predict and export CLIs and int8 serving
    (`phase_fcn8s_int8`): FCN-8s serving at B=64 (K2 once a call, K1
    never; vs K2's plain version; the serving bf16 bar; fp32 B=2 flips <
@@ -156,8 +154,7 @@ Phases, each of which passes or ends the script with a non-zero exit:
    both checkpoints (and `--int8`), `cli.export` on phase 20's checkpoint
    (round trip; FCN-8s refused), int8 serving of FCN-32s at B=64 (K1 once,
    K2 never, flips vs bf16 < 0.08); times, peak memory and profile windows
-   of FCN-8s serving, its stage-1 step and int8 serving. The kernels line
-   carries each kernel's launches on these paths;
+   of FCN-8s serving, its stage-1 step and int8 serving;
 22. multi-device (`phase_mesh`): (a) `make_mesh(1, 1)` on a one-rank NCCL
    group, three bf16 B=24 stage-1 steps bit-equal to the bare step's
    (where two bare runs are; cuDNN deterministic), and the step's time on
@@ -169,8 +166,7 @@ Phases, each of which passes or ends the script with a non-zero exit:
    and TP=2, serving at B=64 on DP=2 in fp32 and bf16 (K2, K1 once a rank
    and call), TP=2 serving, the trained gate and FCN-8s's unfused route;
    (c) the train CLI with `--data_parallel 2` on two ranks, its files,
-   checkpoint and resume. The kernels line carries each kernel's launches
-   on these paths, by rank;
+   checkpoint and resume;
 23. height-sharded serving and int8 serving on a mesh (`phase_spatial`):
    (a) `make_szn_predictor(..., mesh=make_mesh(1, 1), spatial=True)` on a
    one-rank NCCL group, FCN-32s at full width, B=1, 2048x2048: fp32 labels
@@ -184,9 +180,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
    B=8 and int8 spatial data=2 (equal to the one-device int8 labels: flips
    < 1e-4; < 0.08 from the one-device bf16 labels); (c) one 4096x4096
    image, bf16, over the two ranks: each rank's peak memory below 0.75x
-   the one-device run's.
-   The kernels line carries K1's and K2's launches on these paths, by
-   rank, and their band checks;
+   the one-device run's. The kernels line carries K1's and K2's band
+   checks;
 24. the native decoder (`phase_decoder`; host C++, not a kernel): (a) built
    from zeroshotsemanticsegmentation_tpu_torch/csrc/zss_loader.cc with g++
    (libjpeg where the compiler finds jpeglib.h, else nvJPEG), the
@@ -200,8 +195,8 @@ Phases, each of which passes or ends the script with a non-zero exit:
    tree of links to the fixtures in the temporary directory, 960 train and
    96 val ids, and the native presence scan of preset 14's train_seen;
    (d) the feed alone at 1, 2, 4 and 8 threads; (e) FCNTrainer at B=24 over
-   the tree, as phase 20's loop, beside its bare step and phase 20's
-   synthetic loop, every batch natively decoded; (f) `-c 14 -ve 1 -se 0`
+   the tree, as phase 20's loop, beside its bare step, every batch
+   natively decoded; (f) `-c 14 -ve 1 -se 0`
    through the train CLI on the tree at full width, its log naming the
    native decoder. (c)-(f) run with `import PIL` failing. The kernels line
    adds the decoder's batches;
@@ -214,8 +209,7 @@ Phases, each of which passes or ends the script with a non-zero exit:
    batch that fits; (c) FCN-8s's pair; (d) the train CLI with `--remat`
    and its resume; (e) a routine checkpoint save's return time and its
    `finish_pending` beside a blocking save, the files equal; (f)
-   `build_info()["device"]` after nvJPEG decodes. The kernels line adds
-   K3-K6's remat launches;
+   `build_info()["device"]` after nvJPEG decodes;
 26. parity evidence on the card (`phase_parity`): (a)
    scripts/torch_parity_evidence.py's bf16 drift: the full-width bf16
    FCN-32s trained 12 stage-1 steps at B=8, 512x512 (K3-K6 at least once a
@@ -226,32 +220,18 @@ Phases, each of which passes or ends the script with a non-zero exit:
    label tool (scripts/torch_make_context59_labels.py) on seeded `.mat`
    fixtures through its CLI and `convert` with `import PIL` failing, its
    PNGs read back through the native decoder and `PascalContext(n_classes=
-   59)` equal to the remap, and whether Pillow is importable here. The
-   kernels line adds K1-K6's launches there.
-27. the measurement programs (`phase_bench`): the bench's serving, train
-   and loop modes (`zeroshotsemanticsegmentation_tpu_torch.bench`), the
-   trained-gate serving bench and the stage-2 step bench
-   (scripts/torch_bench_trained_gate.py, torch_bench_seenmask_step.py),
-   each at its real shapes with its warm and timed run, in this process:
-   each one's launches of K1-K6 (serving K1 and K2 once a chain step,
-   train and loop K3-K6 once a step, the trained gate K1 three times and
-   K2 twice a step over its two chains, stage 2 K2 once a step; fc6's
-   kernel as often as K2 serving and K3 training), finite
-   non-zero checksums, 0 < mfu < 1.05, peak memory above 0, and no host
-   sync in the timed chains (each timed under the sync debug mode "error",
-   which raises here on a fetch); then the ratchet
-   (scripts/torch_bench_gate.py) in fresh processes on a temporary record
-   directory: the first run writes the record (rc 0), the second passes
-   (rc 0), a record forged at 10x fails it (rc 1). Prints the five lines;
-   the kernels line adds K1-K6's launches there;
+   59)` equal to the remap, and whether Pillow is importable here;
+27. the measurement programs once each (`phase_programs`): the bench's
+   three modes, the trained-gate and stage-2 benches, their timed chains
+   under the sync debug mode "error": K1-K6's and fc6's launches in each,
+   finite non-zero checksums, peak memory and the card's name (their
+   rates are the cells' to read);
 28. fc6's implicit-GEMM forward alone (`phase_fc6`), bf16, at B=16 and
    B=24, (B, 512, 23, 23) -> 4096: one launch a call, two calls bit-equal,
    every output within one bf16 ulp (plus 2^-13 of the output's scale) of
    the exact product and its error norm at most 1.01x cuDNN's bf16
    output's; its time beside its bound, cuDNN's
-   F.conv2d and torch.matmul over the materialised patch matrix. Its
-   kernels-line row gathers its launches on the paths of phases 5, 9 and
-   20-27;
+   F.conv2d and torch.matmul over the materialised patch matrix;
 29. DeepLab-v2 ResNet-101 on the serving path and K1 at x8
    (`phase_deeplab`): the model at its published widths (bf16, seeded
    weights) serves a B=16 batch of VOC-sized images in the 512 bucket
@@ -269,13 +249,12 @@ Phases, each of which passes or ends the script with a non-zero exit:
    device time beside their bytes bound and the plain version's time, and
    each pad's device time; `ring_sum` over the same pads at B=24, each
    sum within bf16's rounding plus 1e-5 of the ring's sum of magnitudes
-   of its plain version's fp32 sum. Its kernels-line row adds the
-   serving, stage-1 and train-CLI launches, and each path's of phases
-   21-27, where every path that ran the pruned blocks on the card (K2 or
-   K3 launched, or int8) launched `ring_pad`, and every one that ran K4
-   `ring_sum`. Phases 5, 9 and 21's plain runs take the pads'
-   concatenations (`kernel_takes` patched), so their bars hold the pads
-   too.
+   of its plain version's fp32 sum. Phases 5, 9 and 21's plain runs take
+   the pads' concatenations (`kernel_takes` patched), so their bars hold
+   the pads too.
+On every path of phases 9 and 20-27 that ran the pruned blocks on the
+card (K2 or K3 launched, or int8) `ring_pad` launched, and on every one
+that ran K4 `ring_sum`.
 
 The script reaches no network: `urllib.request.urlretrieve` raises in it,
 so the train CLI's VGG16 fetch of a fresh real-data run (phase 24 (f))
@@ -305,11 +284,6 @@ import numpy as np
 ROOT = osp.dirname(osp.abspath(__file__))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
-
-# published H100 SXM peaks (NVIDIA data sheet, dense)
-PEAK_BYTES_S = 3.35e12
-PEAK_BF16_FLOP_S = 989e12
-PEAK_FP32_FLOP_S = 67e12
 
 H = W = 512
 SERVE_BATCH = 64
@@ -379,15 +353,21 @@ def profiled(fn, iters: int) -> list:
     window of `iters` calls of `fn`, the calls after a ~30 ms spin kernel
     (left out). Late in this script a window can miss kernels: of 3 calls
     of a 36 ms kernel 2 were recorded without the spin, and of 4 calls of
-    a 20-microsecond one 3 with it."""
+    a 20-microsecond one 3 with it. In phases 28-30 about one session in
+    two records nothing, the spin included: such a session is lost, not a
+    window without the kernel, and is profiled again (up to 10 times)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(SPIN_CYCLES)
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
+    for _ in range(10):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SPIN_CYCLES)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        got = prof.key_averages()
+        if any("spin_kernel" in e.key for e in got):
+            break
+    return [e for e in got
             if e.self_device_time_total > 0 and "spin_kernel" not in e.key]
 
 
@@ -456,9 +436,25 @@ def rel(a, b) -> float:
 
 
 def bound(nbytes: float, ops: float, peak: float):
-    """(least ms on the card, what bounds it) for `nbytes` moved and `ops`
-    done at `peak` operations per second."""
-    t_b, t_o = nbytes / PEAK_BYTES_S, ops / peak
+    """(least ms on the card, what bounds it) for `nbytes` moved at
+    `benchmark.bounds.PEAK_BYTES_S` and `ops` done at `peak` a second."""
+    from benchmark import bounds
+    t_b, t_o = nbytes / bounds.PEAK_BYTES_S, ops / peak
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def bound_of(fn, *args):
+    """(least ms on the card, what bounds it) of the kernel bound
+    `fn(*args)` of `benchmark.bounds`: each of its two terms is the bound
+    again with the other term's rate taken as endless."""
+    from benchmark import bounds
+    inf = float("inf")
+    with mock.patch.multiple(bounds, PEAK_BF16_FLOP_S=inf,
+                             PEAK_FP32_FLOP_S=inf):
+        t_b = fn(*args)
+    with mock.patch.object(bounds, "PEAK_BYTES_S", inf):
+        t_o = fn(*args)
+    assert max(t_b, t_o) == fn(*args), f"{fn.__name__} is not max(bytes, ops)"
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
@@ -473,6 +469,7 @@ def phase_pdot(dev, pd, kernels, log, require) -> list:
     and fp32, beside the plain version, torch.matmul and the bound.
     Returns (bf16 rows, fp32 rows)."""
     import torch
+    from benchmark import bounds
 
     def operands(m, k, n, trans, dtype):
         a = torch.randn(*((k, m) if trans else (m, k)), device=dev)
@@ -507,7 +504,7 @@ def phase_pdot(dev, pd, kernels, log, require) -> list:
         a_lib = a.t() if trans else a
         ops = 2.0 * m * k * n
         b_ms, by = bound(a.numel() * 2 + b.numel() * 2 + m * n * 4, ops,
-                         PEAK_BF16_FLOP_S)
+                         bounds.PEAK_BF16_FLOP_S)
         ms = time_ms(lambda: pd.pdot(a, b, out_dtype=torch.float32,
                                      trans_a=trans), iters=10)
         rows.append({
@@ -566,7 +563,7 @@ def phase_pdot(dev, pd, kernels, log, require) -> list:
         a_lib = a.t() if trans else a
         ops = 2.0 * m * k * n
         b_ms, by = bound((a.numel() + b.numel() + m * n) * 4, ops,
-                         PEAK_FP32_FLOP_S)
+                         bounds.PEAK_FP32_FLOP_S)
         iters = 3 if ops > 1e12 else 10
 
         def k7():
@@ -741,6 +738,7 @@ def phase_c11(dev, b1, kernels, log, require) -> dict:
     same rounded inputs (TF32 off) as the plain version; two calls
     bit-equal."""
     import torch
+    from benchmark import bounds
     import torch.nn.functional as F
 
     out = {"max_abs_err_fp32": 0.0, "max_abs_err": 0.0, "differ_share": 0.0,
@@ -856,7 +854,8 @@ def phase_c11(dev, b1, kernels, log, require) -> dict:
     nbytes = n * bench.HP * bench.WP * 3 * 2 + n * ho * wo * 64 * 2 \
         + 28 * 64 * 4
     ops = 2.0 * n * ho * wo * 64 * 27
-    out["bound_ms"], out["bound_by"] = bound(nbytes, ops, PEAK_BF16_FLOP_S)
+    out["bound_ms"], out["bound_by"] = bound(nbytes, ops,
+                                             bounds.PEAK_BF16_FLOP_S)
     log(f"[K8] {tuple(out['shape'])} bf16 (the bench's run): {out['ms']:.4f}"
         f" ms ({nbytes / out['ms'] / 1e6:.0f} GB/s), plain "
         f"{out['plain_ms']:.3f}, cuDNN conv1_1+bias+ReLU "
@@ -872,6 +871,7 @@ def phase_pool(dev, model, kernels, log, require) -> dict:
     it, K9 and that pass's dx equal to the plain version there; K9's times
     there."""
     import torch
+    from benchmark import bounds
     import torch.nn.functional as F
     from zeroshotsemanticsegmentation_tpu_torch.ops import pool_bwd as pb
 
@@ -984,7 +984,8 @@ def phase_pool(dev, model, kernels, log, require) -> dict:
         xl = x.permute(0, 3, 1, 2).requires_grad_()
         yl = F.max_pool2d(xl, 2, 2, ceil_mode=True)
         gl = g.permute(0, 3, 1, 2)
-        b_ms, by = bound(2.5 * xp.numel() * 2, xp.numel(), PEAK_FP32_FLOP_S)
+        b_ms, by = bound(2.5 * xp.numel() * 2, xp.numel(),
+                         bounds.PEAK_FP32_FLOP_S)
         row = {"shape": list(xp.shape), "dtype": "bfloat16",
                "max_abs_err": err,
                "ms": time_ms(lambda: pb.pool_bwd(xp, y, g), iters=20),
@@ -1009,6 +1010,7 @@ def phase_rowdot(dev, rd, pd, log, require) -> dict:
     import ctypes
 
     import torch
+    from benchmark import bounds
     from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels as kernels
 
     out = {}
@@ -1031,7 +1033,7 @@ def phase_rowdot(dev, rd, pd, log, require) -> dict:
                                         iters=20)
             nbytes = 2 * a.numel() * 4 + got.numel() * 4
             out["bound_ms"], out["bound_by"] = bound(
-                nbytes, 2.0 * a.numel(), PEAK_FP32_FLOP_S)
+                nbytes, 2.0 * a.numel(), bounds.PEAK_FP32_FLOP_S)
             out["shape"] = list(shape)
             log(f"[K10b] {shape}: {out['ms']:.4f} ms ({nbytes / out['ms'] / 1e6:.0f}"
                 f" GB/s), plain {out['plain_ms']:.3f}, torch.linalg.vecdot "
@@ -1067,7 +1069,8 @@ def phase_rowdot(dev, rd, pd, log, require) -> dict:
     require(len(per_call) == 1 and "pdot_f32" in next(iter(per_call))
             and 0.5 <= next(iter(per_call.values())) <= 1,
             f"one fp32 pdot call at 512^3 is not one kernel: {per_call}")
-    b_ms, by = bound(3 * 512 * 512 * 4, 2.0 * 512 ** 3, PEAK_FP32_FLOP_S)
+    b_ms, by = bound(3 * 512 * 512 * 4, 2.0 * 512 ** 3,
+                     bounds.PEAK_FP32_FLOP_S)
     out["k10a"] = {
         "max_abs_err": err, "rel_norm": r, "shape": [512, 512, 512],
         "variant": plan["variant"], "splits": plan["splits"],
@@ -1287,27 +1290,19 @@ def csv_rows(path):
     return [line.split(",") for line in lines[1:]]
 
 
-def phase_train_cli(dev, embed, bare_img_s, tmp, log, require) -> dict:
+def phase_train_cli(dev, embed, tmp, log, require) -> dict:
     """Phase 20: the train CLI on the card.
 
     1. and 2. `cli_run_and_resume(tmp, "fcn32s")`: the `-c 14 --synthetic
        -ve 1 -se 1` run, its files, losses and launch counts, and the
        resume (its first run's log directory stays in `tmp` for phase 21).
-    3. One loop timing: FCNTrainer over SyntheticDataset(960 images,
-       500-512 px) at B=24, 512x512, the compact feed, log flushes at 16: a
-       4-step warm-up epoch on 96 other images, then one epoch of 40 steps
-       with host syncs turned into errors between flushes (the flushes at
-       steps 16 and 32 fall inside it). Its img/s over the whole epoch and
-       in the steady window (CUDA events recorded after each step: from
-       the end of the first step to the end of the last, both flushes
-       inside; the host's time between step calls beside it), the wait
-       for the epoch's first batch apart, beside the bare step on the
-       same trainer (a resident batch, no feed, no logging)
-       and phase 10's (`bare_img_s`); the loader's first batch and its rate
-       alone, the save time of one full-width checkpoint (Adam's moments
-       with it) and the peak memory of the loop and of the bare step (the
-       memory already allocated before the loop's model is logged beside
-       them).
+    3. One loop: FCNTrainer over SyntheticDataset(960 images, 500-512 px)
+       at B=24, 512x512, the compact feed, log flushes at 16: a 4-step
+       warm-up epoch on 96 other images, then one epoch of 40 steps with
+       host syncs turned into errors between flushes (the flushes at steps
+       16 and 32 fall inside it), checked by `time_loop`; then the save
+       time of one full-width checkpoint (Adam's moments with it). The
+       loop's rates are the `fcn32s-voc.train-s1-b24` cell's.
     """
     import torch
     from zeroshotsemanticsegmentation_tpu_torch.configs import get_config
@@ -1329,15 +1324,6 @@ def phase_train_cli(dev, embed, bare_img_s, tmp, log, require) -> dict:
                     TRAIN_BATCH, bucket_hw=(H, W), shuffle=True,
                     seed=lcfg.seed, compact=True)
         for n, seed in ((LOOP_IMAGES, 0), (LOOP_WARMUP_IMAGES, 1)))
-    t0 = time.perf_counter()
-    it = iter(loader)
-    next(it)  # an epoch's start: the first batch off the loader
-    first_batch_s = time.perf_counter() - t0
-    it.close()
-    t0 = time.perf_counter()
-    n_feed = sum(b["num_real"] for b in loader)
-    feed_img_s = n_feed / (time.perf_counter() - t0)
-    base_gb = torch.cuda.memory_allocated() / 1e9
     model = FCN32s(20, dtype=torch.bfloat16, fused_block1=True,
                    generator=torch.Generator().manual_seed(lcfg.seed),
                    device=dev)
@@ -1364,26 +1350,10 @@ def phase_train_cli(dev, embed, bare_img_s, tmp, log, require) -> dict:
         "warmup_steps": lp["warmup_steps"],
         "log_flush_steps": lp["log_flush_steps"],
         "flushes_after_steps": lp["flushes_after_steps"],
-        **{k: lp[k] for k in (
-            "seconds", "images_per_s", "first_step_wait_s",
-            "steady_seconds", "steady_images_per_s",
-            "steady_host_ms_per_step", "bare_step_images_per_s",
-            "bare_step_ms")},
-        "phase10_bare_step_images_per_s": bare_img_s,
-        **{k: lp[k] for k in (
-            "loop_over_bare", "steady_over_bare", "overhead_ms_per_step",
-            "steady_overhead_ms_per_step")},
-        "first_batch_s": first_batch_s,
-        "feed_alone_images_per_s": feed_img_s,
-        "allocated_before_gb": base_gb,
-        "max_memory_allocated_gb": lp["max_memory_allocated_gb"],
-        "bare_step_max_memory_allocated_gb":
-            lp["bare_step_max_memory_allocated_gb"],
         "checkpoint_save_s": save_s, "checkpoint_gb": save_gb,
         "syncs_between_flushes": 0}
     log(json.dumps({"train_loop": out["loop"]}))
     del trainer, model
-    out["launches"] = out["cli"]["launches"]
     return out
 
 
@@ -1534,7 +1504,7 @@ def profile_window(fn, iters: int, top: int = 12) -> dict:
                      "calls": e.count / iters} for e in rows]}
 
 
-def phase_fcn8s_int8(dev, embed, serve_bf16_ms, ckpt32, tmp, train_batch,
+def phase_fcn8s_int8(dev, embed, ckpt32, tmp, train_batch,
                      plain_training, flip_rate, log, require) -> dict:
     """Phase 21: FCN-8s through serving, both training stages and the train
     CLI, the predict and export CLIs, and int8 serving, at full width,
@@ -1572,7 +1542,7 @@ def phase_fcn8s_int8(dev, embed, serve_bf16_ms, ckpt32, tmp, train_batch,
     (g) int8 serving of FCN-32s at B=64: K1 once a call and K2 never, label
         flips vs the bf16 predictor on the same weights < 0.08 (the JAX
         bar), ms/batch and MP/s beside the bf16 predictor's in turns (bf16,
-        int8, int8, bf16) and phase 6's, peak memory and a profile window.
+        int8, int8, bf16), peak memory and a profile window.
     Each peak memory stands beside the memory already allocated before it
     (the weights of this phase and earlier phases' tensors).
     """
@@ -1898,7 +1868,6 @@ def phase_fcn8s_int8(dev, embed, serve_bf16_ms, ckpt32, tmp, train_batch,
         "flips_vs_bf16": i8_flips, "ms_per_batch": turns,
         "megapixels_per_s": {k: [SERVE_BATCH * H * W / (t * 1e3) for t in v]
                              for k, v in turns.items()},
-        "phase6_bf16_ms_per_batch": serve_bf16_ms,
         "max_memory_allocated_gb": i8_peak, "allocated_before_gb": i8_base,
         "profile": prof_i8,
         "order": "bf16, int8, int8, bf16"}
@@ -3125,8 +3094,7 @@ def build_tree(fx, root: str, n_train: int, n_val: int
     return data, out
 
 
-def phase_decoder(dev, embed, loop20: dict, card: str, log,
-                  require) -> dict:
+def phase_decoder(dev, embed, card: str, log, require) -> dict:
     """Phase 24: the native decoder on the card's machine.
 
     (a) builds the decoder from csrc/zss_loader.cc (g++; libjpeg where the
@@ -3142,8 +3110,8 @@ def phase_decoder(dev, embed, loop20: dict, card: str, log,
         over the 960 images at 1, 2, 4 and 8 threads, and the host's cores;
     (e) the loop: FCNTrainer at B=24 over the tree (`time_loop`, as phase
         20's: a warm-up epoch on the val split, 40 timed steps with host
-        syncs turned into errors between flushes) beside its bare step and
-        phase 20's synthetic loop; every batch natively decoded;
+        syncs turned into errors between flushes) beside its bare step;
+        every batch natively decoded;
     (f) the train CLI: `-c 14 -ve 1 -se 0` on the tree at full width (12
         train and 4 val ids; `num_viz` 0), its files and its log naming the
         native decoder.
@@ -3245,9 +3213,6 @@ def phase_decoder(dev, embed, loop20: dict, card: str, log,
             out["loop"] = {
                 **{k: v for k, v in lp.items() if k != "launches"},
                 "native_batches": lp["launches"]["native_batches"],
-                "synthetic_loop_images_per_s": loop20["images_per_s"],
-                "synthetic_steady_over_bare": loop20["steady_over_bare"],
-                "synthetic_loop_over_bare": loop20["loop_over_bare"],
                 "syncs_between_flushes": 0}
             log(json.dumps({"decoded_loop": out["loop"]}))
             del trainer, model
@@ -3259,8 +3224,7 @@ def phase_decoder(dev, embed, loop20: dict, card: str, log,
     log(f"[decoder] {card}: phase 24 {out['seconds']:.1f} s; loop "
         f"{out['loop']['images_per_s']:.1f} img/s, "
         f"{out['loop']['loop_over_bare']:.3f}x its bare step (steady "
-        f"{out['loop']['steady_over_bare']:.3f}x; synthetic loop "
-        f"{loop20['steady_over_bare']:.3f}x)")
+        f"{out['loop']['steady_over_bare']:.3f}x)")
     return out
 
 
@@ -3701,22 +3665,20 @@ def phase_parity(dev, tmp: str, card: str, log, require) -> dict:
 
 BENCH_KERNELS = ("szn_fused", "block1_fused", "block1_train_fwd",
                  "block1_train_bwd", "costail_fwd", "costail_bwd")
-GATE_TIMEOUT_S = 300
 
 
-def phase_bench(dev, tmp: str, card: str, log, require) -> dict:
-    """Phase 27: the measurement programs at their real shapes (the bench's
-    three modes, the trained-gate and stage-2 benches), their launches,
-    checksums, mfu and peak memory, with no host sync in a timed chain;
-    then the ratchet in fresh processes on a temporary record directory."""
+def phase_programs(dev, card: str, log, require) -> dict:
+    """Phase 27: the measurement programs once each (the bench's three
+    modes, the trained-gate and stage-2 benches): their launches,
+    checksums, peak memory and card, with no host sync in a timed chain.
+    Returns each program's launch counts."""
     import torch
     from zeroshotsemanticsegmentation_tpu_torch import bench
     from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels, dotpolicy
     t0 = time.perf_counter()
     tg = load_script("torch_bench_trained_gate")
     s2 = load_script("torch_bench_seenmask_step")
-    # the timed chains' guard must be live on this torch: a fetch raises
-    torch.cuda.set_sync_debug_mode("error")
+    torch.cuda.set_sync_debug_mode("error")  # must raise on a fetch
     try:
         torch.ones(1, device=dev).item()
         guard_raises = False
@@ -3729,28 +3691,17 @@ def phase_bench(dev, tmp: str, card: str, log, require) -> dict:
     programs = {"serving": bench.bench_inference, "train": bench.bench_train,
                 "loop": bench.bench_train_loop, "trained_gate": tg.run,
                 "stage2": s2.run}
-    lines, launches, fc6, ring, seconds = {}, {}, {}, {}, {}
+    lines, launches = {}, {}
     dotpolicy.set_dot_free(False)
     try:
         for name, fn in programs.items():
             torch.cuda.empty_cache()
             _kernels.reset_launch_counts()
-            t = time.perf_counter()
-            try:
-                lines[name] = fn(dev)
-            except RuntimeError as e:
-                fail(f"phase 27: the {name} program failed (a host sync in "
-                     f"a timed chain raises): {e}")
-            seconds[name] = time.perf_counter() - t
-            launches[name] = {k: _kernels.launch_counts[k]
-                              for k in BENCH_KERNELS}
-            fc6[name] = _kernels.launch_counts["conv7x7_igemm"]
-            ring[name] = {k: _kernels.launch_counts[k]
-                          for k in ("ring_pad", "ring_sum")}
-            log(json.dumps(lines[name]))
+            lines[name] = fn(dev)  # a host sync in a timed chain raises
+            launches[name] = dict(_kernels.launch_counts)
     finally:
         dotpolicy.set_dot_free(None)
-    # K1-K6's launches in each program's warm and timed runs
+    got = {n: {k: c[k] for k in BENCH_KERNELS} for n, c in launches.items()}
     k3_k6 = dict.fromkeys(BENCH_KERNELS[2:], 0)
     want = {name: {**dict.fromkeys(BENCH_KERNELS, 0), **counts} for name,
             counts in (
@@ -3762,67 +3713,27 @@ def phase_bench(dev, tmp: str, card: str, log, require) -> dict:
                 ("trained_gate", {"szn_fused": 2 * 3 * tg.CHAIN,
                                   "block1_fused": 2 * 2 * tg.CHAIN}),
                 ("stage2", {"block1_fused": 2 * s2.CHAIN}))}
-    require(launches == want, f"phase 27 launches {launches}, want {want}")
+    require(got == want, f"phase 27 launches {got}, want {want}")
     # fc6's forward on its kernel once a trunk forward: as often as K2
     # serving, K3 training
-    want_fc6 = {name: launches[name]["block1_train_fwd" if name in (
-        "train", "loop") else "block1_fused"] for name in programs}
+    fc6 = {n: c["conv7x7_igemm"] for n, c in launches.items()}
+    want_fc6 = {n: got[n]["block1_train_fwd" if n in ("train", "loop")
+                          else "block1_fused"] for n in programs}
     require(fc6 == want_fc6, f"phase 27 fc6 launches {fc6}, want {want_fc6}")
-    checksums = [lines[n]["checksum"]
-                 for n in ("serving", "train", "loop", "stage2")]
-    checksums += [lines["trained_gate"][k]
-                  for k in ("checksum_pristine", "checksum_trained")]
-    require(all(np.isfinite(c) and c != 0 for c in checksums),
-            f"phase 27 checksums {checksums}")
-    require(0 < lines["train"]["mfu"] < 1.05,
-            f"stage-1 mfu {lines['train']['mfu']}")
+    sums = [lines[n]["checksum"] for n in ("serving", "train", "loop",
+                                            "stage2")]
+    sums += [lines["trained_gate"][k]
+             for k in ("checksum_pristine", "checksum_trained")]
+    require(all(np.isfinite(c) and c != 0 for c in sums),
+            f"phase 27 checksums {sums}")
     require(all(lines[n]["peak_gb"] > 0
                 for n in ("serving", "train", "loop", "stage2")),
             "phase 27 peak memory")
     require(all(line["card"] == card for line in lines.values()),
             f"phase 27 card lines {[v['card'] for v in lines.values()]}")
-
-    # the ratchet: a fresh process each, the bench in another under it
-    gate = osp.join(ROOT, "scripts", "torch_bench_gate.py")
-    rec_dir = osp.join(tmp, "records")
-    record = osp.join(rec_dir, "record_serving.json")
-
-    def run_gate():
-        return subprocess.run([sys.executable, gate, "--record-dir", rec_dir],
-                              capture_output=True, text=True, cwd=ROOT,
-                              timeout=GATE_TIMEOUT_S)
-
-    t = time.perf_counter()
-    first = run_gate()
-    require(first.returncode == 0 and osp.exists(record),
-            f"the gate's first run (no record): rc {first.returncode}\n"
-            f"{first.stdout}{first.stderr}")
-    with open(record) as f:
-        rec = json.load(f)
-    second = run_gate()
-    require(second.returncode == 0, f"the gate against its own record: rc "
-            f"{second.returncode}\n{second.stdout}{second.stderr}")
-    with open(record, "w") as f:
-        json.dump(dict(rec, value=10 * rec["value"]), f)
-    forged = run_gate()
-    require(forged.returncode == 1 and "REGRESSION" in forged.stderr,
-            f"the gate against a record forged at 10x: rc "
-            f"{forged.returncode}\n{forged.stdout}{forged.stderr}")
-    seconds["gate"] = time.perf_counter() - t
-    out = {"lines": lines, "launches": launches, "launches_fc6": fc6,
-           "launches_ring": ring, "seconds": seconds,
-           "gate": {"record_mp_s": rec["value"],
-                    "rcs": [first.returncode, second.returncode,
-                            forged.returncode]},
-           "phase_seconds": time.perf_counter() - t0}
-    log(f"[bench] {card}: serving {lines['serving']['value']:.2f} MP/s, "
-        f"stage 1 {lines['train']['value']:.2f} img/s (mfu "
-        f"{lines['train']['mfu']:.4f}), loop {lines['loop']['value']:.2f} "
-        f"img/s, trained gate {lines['trained_gate']['trained_over_pristine']:.4f}"
-        f"x pristine, stage 2 {lines['stage2']['step_ms']:.2f} ms a step; "
-        f"gate rcs {out['gate']['rcs']}; phase 27 "
-        f"{out['phase_seconds']:.1f} s")
-    return out
+    log(f"[programs] phase 27: launches {got}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 FC6_BATCHES = (16, 24)   # phase 28: fc6 at serving's and training's batch
@@ -3840,6 +3751,7 @@ def phase_fc6(dev, kernels, log, require) -> dict:
     torch.matmul over the materialised bf16 patch matrix (the product
     alone)."""
     import torch
+    from benchmark import bounds
     import torch.nn.functional as F
     from zeroshotsemanticsegmentation_tpu_torch.ops import conv7x7 as c7
     t0 = time.perf_counter()
@@ -3868,7 +3780,7 @@ def phase_fc6(dev, kernels, log, require) -> dict:
         m = batch * (ih - k + 1) * (iw - k + 1)
         flops = 2.0 * m * co * ci * k * k
         b_ms, b_by = bound((x.numel() + wp.numel() + y.numel()) * 2, flops,
-                           PEAK_BF16_FLOP_S)
+                           bounds.PEAK_BF16_FLOP_S)
         row = {"batch": batch, "shape": [batch, ci, ih, iw, co, k], "m": m,
                "launches_two_calls": launched, "bit_equal": bit_equal,
                "ulp_misses": ulp_misses, "rel_vs_fp32": rel(y, ref),
@@ -4015,11 +3927,9 @@ def phase_deeplab(dev, kernels, embed, flip_rate, log, require) -> dict:
            "device_ms": device_ms(k1, 20, "szn_labels"),
            "plain_ms": time_ms(
                lambda: sz.szn_labels_plain(aug, *parts, H, W, None, geo), 3)}
-    nbytes = aug.numel() * 4 + DEEPLAB_BATCH * H * W * 4
-    b_s = bounds.k1_bound_s(DEEPLAB_BATCH, h8, w8, kp1, H, W)
-    row.update(bound_ms=1e3 * b_s, bound_by=(
-        "bytes" if b_s == nbytes / bounds.PEAK_BYTES_S else "operations"),
-        flip_rate=flips, launches=k1_launches,
+    row["bound_ms"], row["bound_by"] = bound_of(
+        bounds.k1_bound_s, DEEPLAB_BATCH, h8, w8, kp1, H, W)
+    row.update(flip_rate=flips, launches=k1_launches,
         shape=[DEEPLAB_BATCH, h8, w8, kp1, H, W], geometry=list(geo))
     log(f"[deeplab] K1 x8 B={DEEPLAB_BATCH} {h8}x{w8} -> {H}x{W} "
         f"K+1={kp1}: {row['ms']:.4f} ms by events, {row['device_ms']:.4f} "
@@ -4077,6 +3987,7 @@ def phase_ring_pad(dev, kernels, log, require) -> dict:
     against `ring_sum_plain`'s fp32 sum (bf16's rounding plus 1e-5 of the
     ring's sum of magnitudes)."""
     import torch
+    from benchmark import bounds
     from zeroshotsemanticsegmentation_tpu_torch.ops import ring_pad as rp
     t0 = time.perf_counter()
     geometry = ringpad_geometry(dev)
@@ -4109,7 +4020,7 @@ def phase_ring_pad(dev, kernels, log, require) -> dict:
             for a, c, p in ins:
                 rp.ring_pad_plain(a, c, *p)
 
-        b_ms, b_by = bound(nbytes, 0, PEAK_BF16_FLOP_S)
+        b_ms, b_by = bound(nbytes, 0, bounds.PEAK_BF16_FLOP_S)
         row = {"batch": batch, "gb_moved": nbytes / 1e9, "bound_ms": b_ms,
                "bound_by": b_by, "ms": time_ms(pads_kernel, 10),
                "plain_ms": time_ms(pads_plain, 3)}
@@ -4174,29 +4085,18 @@ RING_KEYS = ("block1_fused", "block1_train_fwd", "block1_train_bwd",
              "ring_pad", "ring_sum")
 
 
-def ring_launches(helpers: dict, parity: dict) -> dict:
-    """K2, K3, K4, `ring_pad` and `ring_sum`'s launches on each path of
-    phases 21-27: `helpers` maps a phase to its one-kernel launch function
-    (a tree of counts by path), `parity` is phase 26's counts by part.
-    Keyed by the path through the tree ("21/launches_int8_serve", ...)."""
-
-    def leaves(tree, path):
-        if isinstance(tree, dict):
-            for k, v in tree.items():
-                yield from leaves(v, f"{path}/{k}")
-        elif isinstance(tree, list):
-            for i, v in enumerate(tree):
-                yield from leaves(v, f"{path}/{i}")
-        else:
-            yield path, tree
-
+def ring_launches(tree, path: str = "") -> dict:
+    """K2, K3, K4, `ring_pad` and `ring_sum`'s launches on each path of a
+    tree of launch counts (dicts and lists down to a dict of kernel name
+    to launches), keyed by the path through the tree ("21/int8_serve",
+    ...)."""
+    if isinstance(tree, dict) and all(isinstance(v, int)
+                                      for v in tree.values()):
+        return {path: {k: tree.get(k, 0) for k in RING_KEYS}}
     table = {}
-    for phase, fn in helpers.items():
-        by_key = {k: dict(leaves(fn(k), phase)) for k in RING_KEYS}
-        for path in by_key["ring_pad"]:
-            table[path] = {k: by_key[k][path] for k in RING_KEYS}
-    for part, counts in parity.items():
-        table[f"26/{part}"] = {k: counts.get(k, 0) for k in RING_KEYS}
+    for k, v in (tree.items() if isinstance(tree, dict)
+                 else enumerate(tree)):
+        table.update(ring_launches(v, f"{path}/{k}" if path else str(k)))
     return table
 
 
@@ -4245,6 +4145,7 @@ def main() -> None:
             make_szn_predictor)
     except ImportError as e:
         fail(f"the port package is not importable next to this script: {e}")
+    from benchmark import bounds
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -4578,14 +4479,6 @@ def main() -> None:
                 require(fr < 1e-4, f"unfused reference flip rate {fr}")
 
     # ---- 6. times -------------------------------------------------------
-    x64 = requests[0][:1].to(dev).repeat(SERVE_BATCH, 1, 1, 1)
-    x64 = x64 + torch.randn_like(x64)
-    ms = time_ms(lambda: serve(x64), iters=5)
-    mps = SERVE_BATCH * H * W / (ms * 1e3)
-    log(json.dumps({"serving": {"batch": SERVE_BATCH, "hw": [H, W],
-                                "dtype": "bfloat16", "ms_per_batch": ms,
-                                "megapixels_per_s": mps}}))
-
     # K1 at the serving shape
     score = torch.randn(SERVE_BATCH, 17, 17, 20, device=dev)
     gate = torch.randn(SERVE_BATCH, 17, 17, device=dev)
@@ -4597,11 +4490,8 @@ def main() -> None:
     k1_plain_ms = time_ms(lambda: sz.szn_labels_plain(aug, *parts, H, W),
                           iters=3)
     kp1 = aug.shape[-1]
-    k1_bytes = aug.numel() * 4 + SERVE_BATCH * H * W * 4
-    k1_ops = 3 * SERVE_BATCH * H * (W + 17) * kp1
-    k1_bound = 1e3 * max(k1_bytes / PEAK_BYTES_S, k1_ops / PEAK_FP32_FLOP_S)
-    k1_by = ("bytes" if k1_bytes / PEAK_BYTES_S
-             >= k1_ops / PEAK_FP32_FLOP_S else "operations")
+    k1_bound, k1_by = bound_of(bounds.k1_bound_s, SERVE_BATCH, 17, 17, kp1,
+                               H, W)
     # the issue floor: 5 lane-instructions a class and pixel (2 of blend, 3
     # of argmax update) at 4 x 32 lanes an SM a cycle, at the card's
     # largest SM clock
@@ -4665,13 +4555,8 @@ def main() -> None:
         k2_lib_ms = time_ms(lambda: F.max_pool2d(torch.relu(F.conv2d(
             torch.relu(F.conv2d(xl, lw[0], lw[1])), lw[2], lw[3])), 2, 2),
             iters=3)
-    hc1, hc2 = H + 8, H + 6
-    k2_ops = 2 * SERVE_BATCH * (hc1 * hc1 * 27 * 64 + hc2 * hc2 * 576 * 64)
-    k2_bytes = (xp.numel() * 2 + SERVE_BATCH * (hc2 // 2) ** 2 * 64 * 2
-                + (27 + 576) * 64 * 2 + 128 * 4)
-    k2_bound = 1e3 * max(k2_bytes / PEAK_BYTES_S, k2_ops / PEAK_BF16_FLOP_S)
-    k2_by = ("bytes" if k2_bytes / PEAK_BYTES_S
-             >= k2_ops / PEAK_BF16_FLOP_S else "operations")
+    k2_bound, k2_by = bound_of(bounds.k2_bound_s, SERVE_BATCH, H + 10,
+                               W + 10)
 
     # ---- 7. block-1 training kernels (K3, K4) vs plain ------------------
     def c11_from(xp, wts, dtype):
@@ -5004,17 +4889,7 @@ def main() -> None:
             f"versions' error vs fp32: {bar_misses}")
     del grads_k, grads_p, grads_bk, grads_bp
 
-    # ---- 10. training times ---------------------------------------------
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = time_ms(lambda: step(tstate, tbatch, tgen), iters=TIMED_STEPS,
-                      warmup=1)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    img_s = TRAIN_BATCH / (step_ms / 1e3)
-    log(json.dumps({"train": {"batch": TRAIN_BATCH, "hw": [H, W],
-                              "dtype": "bfloat16", "ms_per_step": step_ms,
-                              "images_per_s": img_s,
-                              "max_memory_allocated_gb": peak_gb,
-                              "steps_timed": TIMED_STEPS}}))
+    # ---- 10. training kernels' times --------------------------------------
     del tstate, tmodel, tbatch
 
     bf = torch.bfloat16
@@ -5058,18 +4933,8 @@ def main() -> None:
         lib_out, (cl, k2l, b2l), gl, retain_graph=True), iters=3)
     del lib_out, cl
     hc = H + 8
-    ho = hc - 2
-    conv_ops = 2 * TRAIN_BATCH * ho * ho * 576 * 64
-    c11_bytes, out_bytes = c11.numel() * 2, g.numel() * 2
-    k3_bound = 1e3 * max((c11_bytes + out_bytes) / PEAK_BYTES_S,
-                         conv_ops / PEAK_BF16_FLOP_S)
-    k3_by = ("bytes" if (c11_bytes + out_bytes) / PEAK_BYTES_S
-             >= conv_ops / PEAK_BF16_FLOP_S else "operations")
-    k4_bytes = 2 * c11_bytes + out_bytes
-    k4_bound = 1e3 * max(k4_bytes / PEAK_BYTES_S,
-                         3 * conv_ops / PEAK_BF16_FLOP_S)
-    k4_by = ("bytes" if k4_bytes / PEAK_BYTES_S
-             >= 3 * conv_ops / PEAK_BF16_FLOP_S else "operations")
+    k3_bound, k3_by = bound_of(bounds.k3_bound_s, TRAIN_BATCH, hc, hc)
+    k4_bound, k4_by = bound_of(bounds.k4_bound_s, TRAIN_BATCH, hc, hc)
     del c11, g
 
     def tail_times(emb, plain_batch):
@@ -5095,13 +4960,10 @@ def main() -> None:
         t["k5_ms"], t["k6_ms"] = time_ms(k5, iters=10), time_ms(k6, iters=10)
         t["k5_device_ms"] = device_ms(k5, iters=10)
         t["k6_device_ms"] = device_ms(k6, iters=10)
-        pix = TRAIN_BATCH * H * W
-        t["k5_bound"], t["k5_by"] = bound(
-            score.numel() * 4 + label.numel() * 4 + 2 * tk * tc * 4,
-            pix * (5 * tc + 2 * tk * tc), PEAK_FP32_FLOP_S)
-        t["k6_bound"], t["k6_by"] = bound(
-            2 * score.numel() * 4 + label.numel() * 4 + tk * tc * 4,
-            pix * 9 * tc, PEAK_FP32_FLOP_S)
+        t["k5_bound"], t["k5_by"] = bound_of(bounds.k5_bound_s,
+                                             TRAIN_BATCH, H, W, tk, tc)
+        t["k6_bound"], t["k6_by"] = bound_of(bounds.k6_bound_s,
+                                             TRAIN_BATCH, H, W, tk, tc)
         for kn in ("k5", "k6"):
             t[f"{kn}_share"] = t[f"{kn}_bound"] / t[f"{kn}_device_ms"]
         sp, lp = score[:plain_batch], label[:plain_batch]
@@ -5341,11 +5203,10 @@ def main() -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         # ---- 20. the train CLI on the card --------------------------------
-        tcli = phase_train_cli(dev, embed, img_s, tmp, log, require)
-        cli_launches = tcli["launches"]
+        tcli = phase_train_cli(dev, embed, tmp, log, require)
 
         # ---- 21. FCN-8s, the predict and export CLIs, int8 serving --------
-        p21 = phase_fcn8s_int8(dev, embed, ms, tcli["checkpoint"], tmp,
+        p21 = phase_fcn8s_int8(dev, embed, tcli["checkpoint"], tmp,
                                train_batch, plain_training, flip_rate, log,
                                require)
 
@@ -5356,11 +5217,10 @@ def main() -> None:
     # ---- 23. height-sharded serving, int8 serving on a mesh -----------------
     torch.cuda.empty_cache()
     p23 = phase_spatial(dev, card, log, require)
-    l21 = p21["launches"]
 
     # ---- 24. the native decoder: fixtures, the loop and the CLI ------------
     torch.cuda.empty_cache()
-    p24 = phase_decoder(dev, embed, tcli["loop"], card, log, require)
+    p24 = phase_decoder(dev, embed, card, log, require)
 
     # ---- 25. remat, overlapped saves, the decoder's device -----------------
     torch.cuda.empty_cache()
@@ -5371,12 +5231,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         p26 = phase_parity(dev, tmp, card, log, require)
-    l26 = p26["bf16"]["launches"]
 
-    # ---- 27. the measurement programs and the ratchet --------------------
+    # ---- 27. the measurement programs once each ---------------------------
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        p27 = phase_bench(dev, tmp, card, log, require)
+    p27 = phase_programs(dev, card, log, require)
 
     # ---- 28. fc6's implicit-GEMM forward alone ----------------------------
     torch.cuda.empty_cache()
@@ -5390,65 +5248,23 @@ def main() -> None:
     torch.cuda.empty_cache()
     p30 = phase_ring_pad(dev, _kernels, log, require)
 
-    def launches27(key: str) -> dict:
-        """One kernel's launches on phase 27's programs (warm and timed
-        runs)."""
-        return {"launches_bench": {
-            name: {**counts, **p27["launches_ring"][name]}[key]
-            for name, counts in p27["launches"].items()}}
-
-    def launches26(key: str) -> dict:
-        """One kernel's launches on phase 26's drift study: its training
-        steps (K3-K6) or its kernels' serving run (K1, K2)."""
-        part = "serve_kernels" if key in l26["serve_kernels"] else "train"
-        return {"launches_parity": l26[part][key]}
-
-    def launches25(key: str) -> dict:
-        """One kernel's launches on phase 25's remat paths: one step of
-        each variant (plain, remat), and the train CLI's run with --remat
-        and its resume (K1 and K2 in their validations)."""
-        return {"launches_remat": {
-            "stage1_pruned": [p25["a"][v]["launches"].get(key, 0)
-                              for v in ("plain", "remat")],
-            "stage1_unpruned": [p25["b"][v]["launches"].get(key, 0)
-                                for v in ("plain", "remat")],
-            "fcn8s": [p25["c"][v]["launches"].get(key, 0)
-                      for v in ("plain", "remat")],
-            "train_cli": p25["d"]["cli"]["launches"].get(key, 0),
-            "train_cli_resume": p25["d"]["resume"]["launches"].get(key, 0)}}
-
-    def launches22(key: str) -> dict:
-        """One kernel's launches on phase 22's paths: (a) the world-1 NCCL
-        mesh's three steps, (b) each two-rank path by rank, (c) each rank's
-        two-rank CLI run."""
-        return {"launches_mesh": {
-            "world1_nccl": p22["a"]["launches"].get(key, 0),
-            "two_ranks_gloo": {str(r): {path: c.get(key, 0)
-                                        for path, c in paths.items()}
-                               for r, paths in p22["b"]["launches"].items()},
-            "two_rank_cli": [c.get(key, 0)
-                             for c in p22["c"]["launches_first"]]}}
-
-    def launches23(key: str) -> dict:
-        """One kernel's launches on phase 23's paths: (a) one spatial call
-        on the world-1 NCCL mesh in fp32 and in bf16, (b) and (c) each
-        two-rank path by rank."""
-        return {"launches_spatial": {
-            "world1_nccl": [p23["a"]["launches_fp32"].get(key, 0),
-                            p23["a"]["launches_bf16"].get(key, 0)],
-            "two_ranks_gloo": {str(r): {path: c.get(key, 0)
-                                        for path, c in paths.items()}
-                               for r, paths in p23["b"]["launches"].items()}}}
-
-    def launches21(key: str) -> dict:
-        """One kernel's launches on phase 21's paths."""
-        return {f"launches_{path}": counts[key]
-                for path, counts in l21.items()}
-
-    ring = ring_launches(
-        {"21": launches21, "22": launches22, "23": launches23,
-         "25": launches25, "27": launches27}, l26)
-    log("[ring_pad] phases 21-27 (K2 + K3 / K4 / ring_pad / ring_sum): "
+    # every path of phases 9 and 20-27 that ran the pruned blocks on the
+    # card launched the ring pads' kernels
+    ring = ring_launches({
+        "9": tlaunches, "20": tcli["cli"]["launches"], "21": p21["launches"],
+        "22": {"world1_nccl": p22["a"]["launches"],
+               "two_ranks_gloo": p22["b"]["launches"],
+               "two_rank_cli": p22["c"]["launches_first"]},
+        "23": {"world1_nccl": [p23["a"]["launches_fp32"],
+                               p23["a"]["launches_bf16"]],
+               "two_ranks_gloo": p23["b"]["launches"]},
+        "25": {**{part: [p25[k][v]["launches"] for v in ("plain", "remat")]
+                  for k, part in (("a", "stage1_pruned"),
+                                  ("b", "stage1_unpruned"), ("c", "fcn8s"))},
+               "train_cli": p25["d"]["cli"]["launches"],
+               "train_cli_resume": p25["d"]["resume"]["launches"]},
+        "26": p26["bf16"]["launches"], "27": p27})
+    log("[ring_pad] phases 9, 20-27 (K2 + K3 / K4 / ring_pad / ring_sum): "
         + "; ".join(f"{path} {n['block1_fused'] + n['block1_train_fwd']}"
                     f"/{n['block1_train_bwd']}/{n['ring_pad']}"
                     f"/{n['ring_sum']}" for path, n in ring.items()))
@@ -5465,13 +5281,8 @@ def main() -> None:
          "source": src + "szn_fused.cu",
          "replaces": ref + "szn_fused.py:44",
          "launches": launches["szn_fused"],
-         "launches_train_cli": cli_launches["szn_fused"],
-         **launches21("szn_fused"), **launches22("szn_fused"),
-         **launches23("szn_fused"), **launches25("szn_fused"),
-         **launches26("szn_fused"),
-         **launches27("szn_fused"),
          "band": p23["k1_band"],
-         "launches_eval": evals["k1_launches"], "max_abs_err": k1_maxerr,
+         "max_abs_err": k1_maxerr,
          "flip_rate": k1_flips, "flip_rate_k33": k33_flips,
          "flip_rate_ties": tie_flips, "ms": k1_ms,
          "device_ms": k1_device_ms, "plain_ms": k1_plain_ms,
@@ -5482,7 +5293,6 @@ def main() -> None:
          "source": src + "szn_fused.cu",
          "replaces": ref + "szn_fused.py:44",
          "launches": p29["k1"]["launches"],
-         "launches_deeplab_serving": p29["launches"]["szn_fused"],
          "flip_rate": p29["k1"]["flip_rate"],
          "flip_rate_serving": p29["serve_flip_rate"],
          **{k: p29["k1"][k] for k in ("ms", "device_ms", "plain_ms",
@@ -5493,58 +5303,33 @@ def main() -> None:
          "source": src + "block1_fused.cu",
          "replaces": ref + "block1_fused.py:485",
          "launches": launches["block1_fused"],
-         "launches_train_cli": cli_launches["block1_fused"],
-         **launches21("block1_fused"), **launches22("block1_fused"),
-         **launches23("block1_fused"), **launches25("block1_fused"),
-         **launches26("block1_fused"),
-         **launches27("block1_fused"),
          "band": p23["k2_band"],
          "max_abs_err": k2_bf16_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
          "bound_by": k2_by, "library_ms": k2_lib_ms,
          "shape": [SERVE_BATCH, H + 10, W + 10, 3], "dtype": "bfloat16",
          "bit_equal": k2_bit_equal, "serving_bar": sbar,
-         "design": "block1_fused_wgmma: persistent, conv1_1 as a K=32 "
-                   "wgmma GEMM from the input patch into the c11 tile, "
-                   "conv1_2 on c3w::conv_mainloop, PoolStore epilogue; fp32 "
-                   "keeps the CUDA-core block1_kernel",
          "build": k2_build},
         {"name": "block1_train_forward", "route": "cuda",
          "source": src + "block1_train.cu",
          "replaces": ref + "block1_fused.py:288",
          "launches": tlaunches["block1_train_fwd"],
-         "launches_train_cli": cli_launches["block1_train_fwd"],
-         **launches21("block1_train_fwd"), **launches22("block1_train_fwd"),
-         **launches25("block1_train_fwd"),
-         **launches26("block1_train_fwd"),
-         **launches27("block1_train_fwd"),
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound,
          "bound_by": k3_by, "library_ms": k3_lib_ms,
          "shape": [TRAIN_BATCH, hc, hc, 64], "dtype": "bfloat16",
-         "design": "conv2_pool_fwd_wgmma: persistent wgmma m64n64k16 "
-                   "implicit GEMM (csrc/conv3x3_wgmma.cuh), pool epilogue; "
-                   "fp32 keeps the CUDA-core conv2_pool_fwd",
          "build": {k: v for k, v in b1_build.items()
                    if k == "conv2_pool_fwd_wgmma"}},
         {"name": "block1_train_backward", "route": "cuda",
          "source": src + "block1_train.cu",
          "replaces": ref + "block1_fused.py:676",
          "launches": tlaunches["block1_train_bwd"],
-         "launches_train_cli": cli_launches["block1_train_bwd"],
-         **launches21("block1_train_bwd"), **launches22("block1_train_bwd"),
-         **launches25("block1_train_bwd"),
-         **launches26("block1_train_bwd"),
-         **launches27("block1_train_bwd"),
          "max_abs_err": k4_err,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
          "bound_by": k4_by, "library_ms": k4_lib_ms,
          "shape": [TRAIN_BATCH, hc, hc, 64], "dtype": "bfloat16",
          "parts_ms": k4_parts, "wgrad_chunks": k4_chunks,
          "checks": k4_checks, "bf16_step_bar": "kernels <= 2x plain",
-         "design": "route and dgrad on K3's wgmma mainloop, "
-                   "conv2_wgrad_wgmma (wgmma, MN-major c11 taps) + ordered "
-                   "fp64 reduce; fp32 keeps the CUDA-core kernels",
          "build": {k: v for k, v in b1_build.items()
                    if k in ("conv2_pool_route_wgmma", "conv2_wgrad_wgmma",
                             "conv2_dgrad_wgmma", "wgrad_reduce")}},
@@ -5552,11 +5337,6 @@ def main() -> None:
          "source": src + "costail_fused.cu",
          "replaces": ref + "costail_fused.py:108",
          "launches": tlaunches["costail_fwd"],
-         "launches_train_cli": cli_launches["costail_fwd"],
-         **launches21("costail_fwd"), **launches22("costail_fwd"),
-         **launches25("costail_fwd"),
-         **launches26("costail_fwd"),
-         **launches27("costail_fwd"),
          "max_abs_err": tail_errs[20][0], "ms": tail20["k5_ms"],
          "device_ms": tail20["k5_device_ms"],
          "bound_share": tail20["k5_share"],
@@ -5572,22 +5352,12 @@ def main() -> None:
              "k5_ms", "k5_device_ms", "k5_share", "k5_coherent_ms",
              "k5_coherent_device_ms", "k5_plain_ms", "k5_bound", "k5_by",
              "plain_batch")},
-         "design": "persistent pipelined stream: bulk-copy (TMA) ring of "
-                   "3-4 tile stages, one mbarrier a stage; register form "
-                   "(C in 2/5/10/20/21, 2 px a thread) or wide form (8 "
-                   "lanes a pixel pair, 2 x 11 register-blocked argmax); "
-                   "warp-aggregated histogram; ordered partials",
          "build": {k: v for k, v in k56_build.items()
                    if k.startswith("costail_fwd") or k == "costail_finalize"}},
         {"name": "costail_backward", "route": "cuda",
          "source": src + "costail_fused.cu",
          "replaces": ref + "costail_fused.py:145",
          "launches": tlaunches["costail_bwd"],
-         "launches_train_cli": cli_launches["costail_bwd"],
-         **launches21("costail_bwd"), **launches22("costail_bwd"),
-         **launches25("costail_bwd"),
-         **launches26("costail_bwd"),
-         **launches27("costail_bwd"),
          "max_abs_err": tail_errs[20][1], "ms": tail20["k6_ms"],
          "device_ms": tail20["k6_device_ms"],
          "bound_share": tail20["k6_share"],
@@ -5599,9 +5369,6 @@ def main() -> None:
          "c300": {k: tail300[k] for k in (
              "k6_ms", "k6_device_ms", "k6_share", "k6_plain_ms", "k6_bound",
              "k6_by", "plain_batch")},
-         "design": "the forward's ring, d score computed in place and "
-                   "stored by bulk copies (fence.proxy.async, "
-                   "wait_group.read before the stage is refilled)",
          "build": {k: v for k, v in k56_build.items()
                    if k.startswith("costail_bwd")}},
         {"name": "conv7x7_igemm", "route": "cuda",
@@ -5609,55 +5376,28 @@ def main() -> None:
          "replaces": "none (fc6's forward: cuDNN's precomputed sgemm; the "
                      "JAX package leaves it to XLA)",
          "launches": launches["conv7x7_igemm"],
-         "launches_train": tlaunches["conv7x7_igemm"],
-         "launches_train_cli": cli_launches["conv7x7_igemm"],
-         **launches21("conv7x7_igemm"), **launches22("conv7x7_igemm"),
-         **launches23("conv7x7_igemm"), **launches25("conv7x7_igemm"),
-         "launches_parity": {part: l26[part]["conv7x7_igemm"]
-                             for part in ("train", "serve_kernels",
-                                          "serve_plain")},
-         "launches_bench": p27["launches_fc6"],
          **{k: p28["rows"][0][k] for k in (
              "ms", "device_ms", "bound_ms", "bound_by", "bound_share",
              "library_ms", "library_device_ms", "patch_matmul_ms",
              "patch_matmul_device_ms", "rel_vs_fp32",
              "cudnn_rel_vs_fp32", "shape")},
          "dtype": "bfloat16", "serving_bar": sbar, "rows": p28["rows"],
-         "design": "implicit GEMM, persistent: one producer warpgroup "
-                   "gathers each tap's 128 pixel rows of 64 channels by "
-                   "cp.async into the 128-byte swizzle and TMA-loads the "
-                   "packed weight's box; two consumer warpgroups on wgmma "
-                   "from shared memory on a 128 x 256 tile "
-                   "(csrc/tma_wgmma.cuh, shared with pdot_tma); "
-                   "N-panel-major tile walk",
          "build": fc6_build},
         {"name": "ring_pad", "route": "cuda", "source": src + "ring_pad.cu",
          "replaces": "none (the ring pads' two concatenations, "
                      "models/pruned.py _padc; the JAX package leaves them "
                      "to XLA)",
          "launches": launches["ring_pad"],
-         "launches_train": {k: tlaunches[k] for k in ("ring_pad",
-                                                      "ring_sum")},
-         "launches_train_cli": {k: cli_launches[k] for k in ("ring_pad",
-                                                             "ring_sum")},
-         "launches_phases_21_27": {
-             path: {k: n[k] for k in ("ring_pad", "ring_sum")}
-             for path, n in ring.items()},
+         "ring_sum_launches_stage1": tlaunches["ring_sum"],
          **{k: p30["rows"][0][k] for k in (
              "ms", "device_ms", "bound_ms", "bound_by", "bound_share",
              "plain_ms")},
          "dtype": "bfloat16", "rows": p30["rows"],
          "ring_sum": p30["ring_sum"], "geometry": p30["geometry"],
-         "design": "one block an output row, 16-byte vectors, loads before "
-                   "stores, the constant staged in shared memory; ring_sum "
-                   "in two passes of a fixed order",
          "build": rp_build},
         {"name": "pdot", "route": "cuda", "source": src + "pdot.cu",
          "replaces": ref + "pdot.py:47",
          "launches": dlaunches["pdot"],
-         "launches_train_cli": cli_launches["pdot"],
-         **launches21("pdot"), **launches22("pdot"),
-         "launches_stage2_dot_free": STAGE2_STEPS,
          "max_abs_err": fc6_row["max_abs_err"], "ms": fc6_row["ms"],
          "plain_ms": fc6_row["plain_ms"], "bound_ms": fc6_row["bound_ms"],
          "bound_by": fc6_row["bound_by"],
@@ -5666,10 +5406,6 @@ def main() -> None:
          "dtype": "bfloat16 in, float32 out", "variant": fc6_row["variant"],
          "launches_by_variant": {v: dlaunches[f"pdot_{v}"] for v in (
              "tma", "narrow", "wmma")},
-         "design": "tma: TMA ring + wgmma, one producer and two consumer "
-                   "warpgroups, persistent; narrow: wgmma n8/16/24, cp.async "
-                   "ring, 512-deep K chunks + ordered reduce; wmma for the "
-                   "other bf16 shapes; fp32 inputs on the fp32 route (next)",
          "build": k7_build, "shapes": pdot_rows},
         {"name": "pdot (fp32 route)", "route": "cuda",
          "source": src + "pdot.cu", "replaces": ref + "pdot.py:47",
@@ -5682,13 +5418,6 @@ def main() -> None:
          "shape": [f32_rows[0]["m"], f32_rows[0]["k"], f32_rows[0]["n"]],
          "dtype": "float32", "variant": f32_rows[0]["variant"],
          "fp32_b2_step_ms": f32_step_ms,
-         "design": "full fp32 FFMA on CUDA cores: 128x128 (N > 32) or "
-                   "256x32 tile, float4 fragments, cp.async ring (2 stages "
-                   "of 32-deep K steps, or 4 of 16; 4-byte copies for "
-                   "unaligned rows; a's stage transposed in shared memory "
-                   "without trans_a), split K as one cluster of <= 8 "
-                   "blocks reduced through distributed shared memory in "
-                   "rank order",
          "build": {key: v for key, v in k7_build.items()
                    if key.startswith("pdot_f32")},
          "shapes": f32_rows},
@@ -5696,7 +5425,6 @@ def main() -> None:
          "source": src + "conv1_1.cu",
          "replaces": ref + "block1_fused.py:201",
          "launches": c11["launches"],
-         **launches21("conv1_1_pairs"),
          "max_abs_err": c11["max_abs_err"],
          "max_abs_err_fp32": c11["max_abs_err_fp32"], "ms": c11["ms"],
          "plain_ms": c11["plain_ms"], "bound_ms": c11["bound_ms"],
@@ -5707,7 +5435,6 @@ def main() -> None:
         {"name": "pool_bwd", "route": "cuda", "source": src + "pool_bwd.cu",
          "replaces": "scripts/experiments/pool_bwd_pallas.py:111",
          "launches": pool["launches"],
-         **launches21("pool_bwd"),
          "max_abs_err": pool["max_abs_err"],
          **{k: pool["shapes"][0][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -5716,26 +5443,14 @@ def main() -> None:
         {"name": "rowdot", "route": "cuda", "source": src + "rowdot.cu",
          "replaces": "scripts/probe_h2d.py:763",
          "launches": probe["rowdot_pl"]["launches"]["rowdot"],
-         **launches21("rowdot"),
          **{k: rdot[k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms",
                                  "shape")}},
         {"name": "pdot (probe 512x512 fp32, K10a)", "route": "cuda",
          "source": src + "pdot.cu", "replaces": "scripts/probe_h2d.py:258",
          "launches": probe["pallas_dot"]["launches"]["pdot"],
-         **launches21("pdot"),
          **rdot["k10a"], "dtype": "float32"},
     ]
-    log(f"[times] K1 {k1_ms:.4f} ms (plain {k1_plain_ms:.3f}, bound "
-        f"{k1_bound:.4f}); K2 {k2_ms:.3f} ms (plain {k2_plain_ms:.3f}, "
-        f"cuDNN {k2_lib_ms:.3f}, bound {k2_bound:.3f})")
-    log(f"[mesh] {card}: world-1 NCCL step {p22['a']['mesh_ms']:.2f} ms vs "
-        f"bare {p22['a']['bare_ms']:.2f} ms; phase 22 "
-        f"{p22['seconds']:.1f} s")
-    log(f"[spatial] {card}: B=1 {SPATIAL_HW}x{SPATIAL_HW} bf16 "
-        f"{p23['a']['spatial_ms']:.2f} ms spatial (world 1) vs "
-        f"{p23['a']['one_device_ms']:.2f} ms one device; peaks at "
-        f"{SPATIAL_BIG_HW}: {p23['c']}; phase 23 {p23['seconds']:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     decoder = {
         "name": "zss_loader (host C++, not a kernel)",
@@ -5754,15 +5469,6 @@ def main() -> None:
         "batch", "ms", "peak_gb", "step_peak_gb")}
         for v in ("plain", "remat")} for k in ("a", "b", "c")}
     remat["save"] = p25["save"]
-    log(f"[remat] {card}: pruned B={TRAIN_BATCH} "
-        f"{p25['a']['plain']['ms']:.2f} -> {p25['a']['remat']['ms']:.2f} ms, "
-        f"step peak {p25['a']['plain']['step_peak_gb']:.2f} -> "
-        f"{p25['a']['remat']['step_peak_gb']:.2f} GB; unpruned "
-        f"B={p25['b']['batch']} {p25['b']['plain']['step_peak_gb']:.2f} -> "
-        f"{p25['b']['remat']['step_peak_gb']:.2f} GB; routine save returns in "
-        f"{p25['save']['routine_return_s']:.3f} s vs "
-        f"{p25['save']['blocking_s']:.3f} s blocking; phase 25 "
-        f"{p25['seconds']:.1f} s")
     b16 = p26["bf16"]
     parity = {k: b16[k] for k in (
         "flip_rate_kernels", "flip_rate_plain", "flip_ratio", "pixels",
@@ -5770,16 +5476,8 @@ def main() -> None:
     parity["metrics_abs_delta_kernels"] = {
         g: d["abs_delta_kernels"] for g, d in b16["metrics"].items()}
     parity["context59"] = p26["context59"]
-    log(f"[parity] {card}: bf16 flips vs fp32 "
-        f"{b16['flip_rate_kernels']:.5f} (plain "
-        f"{b16['flip_rate_plain']:.5f}); context-59 tool "
-        f"{p26['context59']['files']} files equal; Pillow importable: "
-        f"{p26['context59']['pillow_importable']}; phase 26 "
-        f"{p26['seconds']:.1f} s")
     log(json.dumps({"kernels": kernels, "decoder": decoder, "remat": remat,
-                    "parity": parity,
-                    "bench": {k: p27[k] for k in ("lines", "seconds",
-                                                  "gate")}}))
+                    "parity": parity}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

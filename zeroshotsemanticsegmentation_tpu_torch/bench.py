@@ -33,9 +33,10 @@ the seeded one), which runs anywhere, and a timed wrapper
 (`bench_inference`, `bench_train`, `bench_train_loop`), which needs the
 card and raises elsewhere. Every line carries `card`, the card's name and
 power limit as nvidia-smi gives them, and `peak_gb`, the timed chain's
-`torch.cuda.max_memory_allocated()`. `mfu` counts bench.py's 1080 GFLOP a
-trained image (the unpruned pad-100 geometry) against the H100 SXM's dense
-bf16 peak.
+`torch.cuda.max_memory_allocated()`. The benchmark's cells
+(`benchmark/run.py`, BENCHMARK.json) time serving, stage 1 and stage 2 end
+to end: read end-to-end numbers, and the share of the card's peak that
+training reaches (`train.mfu`), there.
 
 Where it differs from bench.py: its seeded init is not the JAX
 `PRNGKey(0)` init, and its dropout draws from one generator that advances
@@ -75,11 +76,6 @@ CHAIN = 8            # serving evaluations a timed chain
 TRAIN_BATCH = 24
 TRAIN_CHAIN = 4
 LOOP_BATCHES = 16    # the loop's epoch: 16 replayed batches
-# bench.py's FLOPs: 360 GFLOP forward an image at 512^2 (pad-100 geometry),
-# the backward about twice that
-TRAIN_GFLOP_PER_IMG = 1080.0
-# NVIDIA H100 SXM, dense bf16 (data sheet)
-H100_BF16_PEAK_TFLOPS = 989.0
 NUM_CLASSES = 21     # pascal
 EMBED_DIM = 20       # config 14's embeddings
 UNSEEN = (1, 13)
@@ -340,14 +336,11 @@ def serving_report(seconds: float, batch: int, hw: int, chain: int,
 def train_report(seconds: float, batch: int, chain: int, peak_gb: float,
                  card: str, checksum) -> dict:
     """The stage-1 line: images a second over `chain` steps of `batch` in
-    `seconds`, and the share of the H100's dense bf16 peak that bench.py's
-    1080 GFLOP an image take at that rate."""
+    `seconds`."""
     dt = seconds / chain
     img_per_s = batch / dt
     return {"metric": "fcn_train_throughput", "value": img_per_s,
             "unit": "images/sec/chip", "batch": batch, "step_ms": dt * 1e3,
-            "mfu": img_per_s * TRAIN_GFLOP_PER_IMG
-            / (H100_BF16_PEAK_TFLOPS * 1e3),
             "peak_gb": peak_gb, "checksum": checksum, "card": card}
 
 
