@@ -255,6 +255,11 @@ Phases, each of which passes or ends the script with a non-zero exit:
 On every path of phases 9 and 20-27 that ran the pruned blocks on the
 card (K2 or K3 launched, or int8) `ring_pad` launched, and on every one
 that ran K4 `ring_sum`.
+On the FCN serving paths of phases 5, 21, 23 and 27 every 3x3 conv of
+blocks 2-5 and of the frame probe ran as one cuDNN conv + bias + ReLU
+call (`ops.conv_relu`: `conv_fused` counted, `conv_plain` never); on the
+stage-1 steps of phases 9, 21, 25 and 27, which record a backward, none
+did (`conv_plain` only).
 
 The script reaches no network: `urllib.request.urlretrieve` raises in it,
 so the train CLI's VGG16 fetch of a fresh real-data run (phase 24 (f))
@@ -4085,18 +4090,22 @@ RING_KEYS = ("block1_fused", "block1_train_fwd", "block1_train_bwd",
              "ring_pad", "ring_sum")
 
 
-def ring_launches(tree, path: str = "") -> dict:
-    """K2, K3, K4, `ring_pad` and `ring_sum`'s launches on each path of a
-    tree of launch counts (dicts and lists down to a dict of kernel name
-    to launches), keyed by the path through the tree ("21/int8_serve",
-    ...)."""
+CONV_KEYS = ("conv_fused", "conv_plain")
+
+
+def ring_launches(tree, path: str = "", keys=RING_KEYS) -> dict:
+    """The counts of `keys` (by default K2, K3, K4, `ring_pad` and
+    `ring_sum`'s launches) on each path of a tree of launch counts (dicts
+    and lists down to a dict of kernel name to launches), keyed by the
+    path through the tree ("21/int8_serve", ...)."""
     if isinstance(tree, dict) and all(isinstance(v, int)
                                       for v in tree.values()):
-        return {path: {k: tree.get(k, 0) for k in RING_KEYS}}
+        return {path: {k: tree.get(k, 0) for k in keys}}
     table = {}
     for k, v in (tree.items() if isinstance(tree, dict)
                  else enumerate(tree)):
-        table.update(ring_launches(v, f"{path}/{k}" if path else str(k)))
+        table.update(ring_launches(v, f"{path}/{k}" if path else str(k),
+                                   keys))
     return table
 
 
@@ -5273,6 +5282,31 @@ def main() -> None:
                   or "int8" in path) and not n["ring_pad"]
               or n["block1_train_bwd"] and not n["ring_sum"]]
     require(not missed, f"the ring pads missed their kernels on {missed}")
+
+    # the FCN serving paths (nothing recorded for a backward) ran every
+    # blocks 2-5 conv, the frame probe's too, as one cuDNN conv + bias +
+    # ReLU call; the stage-1 steps (a backward recorded) ran none so
+    serving = ring_launches({
+        "5": launches,
+        "21": {k: p21["launches"][k] for k in ("fcn8s_serve", "int8_serve")},
+        "23": {"world1_nccl": [p23["a"]["launches_fp32"],
+                               p23["a"]["launches_bf16"]]},
+        "27": {k: p27[k] for k in ("serving", "trained_gate", "stage2")}},
+        keys=CONV_KEYS)
+    training = ring_launches({
+        "9": tlaunches, "21": p21["launches"]["fcn8s_train"],
+        "25": {f"{k}_{v}": p25[k][v]["launches"] for k in ("a", "b", "c")
+               for v in ("plain", "remat")},
+        "27": {k: p27[k] for k in ("train", "loop")}}, keys=CONV_KEYS)
+    log("[conv] serving / stage 1 (fused/three ops): " + "; ".join(
+        f"{path} {n['conv_fused']}/{n['conv_plain']}"
+        for path, n in {**serving, **training}.items()))
+    missed = [path for path, n in serving.items()
+              if n["conv_plain"] or not n["conv_fused"]]
+    require(not missed, f"a serving conv missed the fused call on {missed}")
+    fused = [path for path, n in training.items()
+             if n["conv_fused"] or not n["conv_plain"]]
+    require(not fused, f"a recorded forward took the fused call on {fused}")
 
     src = "zeroshotsemanticsegmentation_tpu_torch/csrc/"
     ref = "zeroshotsemanticsegmentation_tpu/ops/"

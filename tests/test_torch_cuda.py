@@ -11,11 +11,13 @@ tests/conftest.py, which imports JAX:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from zeroshotsemanticsegmentation_tpu_torch.ops import _kernels
 from zeroshotsemanticsegmentation_tpu_torch.ops import block1_fused as tb1
 from zeroshotsemanticsegmentation_tpu_torch.ops import conv1x1 as tc1
 from zeroshotsemanticsegmentation_tpu_torch.ops import conv7x7 as tc7
+from zeroshotsemanticsegmentation_tpu_torch.ops import conv_relu as tcr
 from zeroshotsemanticsegmentation_tpu_torch.ops import costail_fused as tct
 from zeroshotsemanticsegmentation_tpu_torch.ops import dotpolicy as tdp
 from zeroshotsemanticsegmentation_tpu_torch.ops import pdot as tpd
@@ -968,6 +970,113 @@ def test_fcn32s_ring_pads_launch_the_kernels(cuda, monkeypatch):
     assert gk.keys() == gp.keys() and "conv2_1.weight" in gk
     for n in gk:
         assert _rel(gk[n], gp[n]) < 1e-5, (n, _rel(gk[n], gp[n]))
+
+
+# ---- the trunk's conv + bias + ReLU (ops/conv_relu.py) ----------------------
+
+# blocks 2-4's convs at the 512 bucket: (Cin, Cout, the ring-padded side)
+TRUNK_CONVS = [(64, 128, 266), (128, 128, 266), (128, 256, 138),
+               (256, 256, 138), (256, 512, 75), (512, 512, 75)]
+
+
+@pytest.mark.parametrize("cin,cout,side", TRUNK_CONVS)
+def test_fused_conv_is_as_close_to_fp32_as_the_three_ops(rng, cuda, cin,
+                                                         cout, side):
+    """bf16 at B=2: the one cuDNN call (its bias added in fp32, one
+    rounding) at least as close, by the relative norm, to the fp32 conv +
+    bias + ReLU of the same rounded operands (TF32 off) as F.conv2d + bias
+    + relu in bf16; finite where the allocator hands it a block that held
+    NaNs (the call's unused summand is its own output)."""
+    bf = torch.bfloat16
+    a = _t(np.maximum(rng.randn(2, cin, side, side), 0).astype(np.float32),
+           cuda).to(bf).contiguous(memory_format=torch.channels_last)
+    w = _t((rng.randn(cout, cin, 3, 3) * np.sqrt(2 / (9 * cin))).astype(
+        np.float32), cuda)
+    b = _t(rng.randn(cout).astype(np.float32) * 0.1, cuda)
+    ref = torch.relu(F.conv2d(a.float(), w.to(bf).float(), b.to(bf).float()))
+    poison = torch.full_like(ref, float("nan"), dtype=bf)
+    del poison
+    before = _kernels.launch_counts["conv_fused"]
+    with torch.inference_mode():
+        fused = tcr.conv_bias_relu(a, w, b, bf)
+    assert _kernels.launch_counts["conv_fused"] == before + 1
+    plain = torch.relu(F.conv2d(a, w.to(bf), b.to(bf)))
+    assert fused.dtype == bf and fused.shape == ref.shape
+    assert fused.is_contiguous(memory_format=torch.channels_last)
+    assert torch.isfinite(fused).all()
+    e_fused, e_plain = _rel(fused.float(), ref), _rel(plain.float(), ref)
+    assert e_fused <= e_plain, (e_fused, e_plain)
+
+
+def test_pruned_fcn32s_on_the_fused_convs_equals_the_plain_stack(cuda):
+    """A 1/8-width fp32 FCN-32s at B=2, 96x96, no grad (TF32 off): the
+    support-pruned forward, every conv of blocks 2-5 and of the probe on
+    the fused call, equals the plain pad-100 forward (on the fused call
+    too) to the rounding of another summation order (rtol 1e-4, atol 1e-4
+    of the scale), as on the CPU (tests/test_torch_ring_pad.py)."""
+    from zeroshotsemanticsegmentation_tpu_torch.models import FCN32s
+    x = torch.randn(2, 96, 96, 3, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(4))
+    x = x * 40
+    outs, counts = [], []
+    for prune in (True, False):
+        m = FCN32s(20, channel_scale=1 / 8, dropout_rate=0.0, device=cuda,
+                   prune_pad=prune,
+                   generator=torch.Generator().manual_seed(7))
+        _kernels.reset_launch_counts()
+        with torch.no_grad():
+            outs.append(m(x, mode="raw"))
+        counts.append((_kernels.launch_counts["conv_fused"],
+                       _kernels.launch_counts["conv_plain"]))
+    assert counts == [(2 * 10 + 3, 0), (13, 0)]
+    for got, want in zip(*outs):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * want.abs().max().item())
+
+
+def test_stage1_step_records_its_backward_through_the_three_ops(cuda):
+    """A bf16 stage-1 step of a 1/8-width FCN-32s at B=2, 256x256: every
+    trunk conv on the three ops (`model.conv` spans with `fused` 0), none
+    on the fused call; the same model's serving forward then takes the
+    fused call for every one."""
+    from zeroshotsemanticsegmentation_tpu_torch.models import FCN32s
+    from zeroshotsemanticsegmentation_tpu_torch.train import (
+        TrainState, make_fcn_optimizer, make_fcn_train_step)
+    from zeroshotsemanticsegmentation_tpu_torch.utils.profiling import (
+        clear_spans, force_tracing, spans)
+    r = np.random.RandomState(5)
+    embed = r.randn(21, 20).astype(np.float32)
+    embed /= np.linalg.norm(embed, axis=1, keepdims=True)
+    step = make_fcn_train_step(loss_name="cos", num_classes=21,
+                               embeddings=embed)
+    hw = 256
+    batch = {"image": _t(r.randn(2, hw, hw, 3).astype(np.float32) * 40,
+                         cuda),
+             "label": _t(r.randint(-1, 21, (2, hw, hw)).astype(np.int32),
+                         cuda),
+             "sizes": torch.full((2, 2), hw, dtype=torch.int32, device=cuda),
+             "num_real": torch.tensor(2, device=cuda)}
+    m = FCN32s(20, dtype=torch.bfloat16, channel_scale=1 / 8,
+               fused_block1=True, device=cuda,
+               generator=torch.Generator().manual_seed(1))
+    st = TrainState.create(m, make_fcn_optimizer(m, optim="adam", lr=1e-5))
+    _kernels.reset_launch_counts()
+    clear_spans()
+    with force_tracing():
+        _, aux = step(st, batch, torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    convs = [rec for rec in spans(0, 2 ** 63 - 1) if rec.name == "model.conv"]
+    clear_spans()
+    assert np.isfinite(aux["loss"].item())
+    assert m.conv3_1.weight.grad is not None
+    assert _kernels.launch_counts["conv_fused"] == 0
+    assert _kernels.launch_counts["conv_plain"] == len(convs) > 0
+    assert all(rec.work["fused"] == 0 for rec in convs)
+    _kernels.reset_launch_counts()
+    with torch.inference_mode():
+        m(batch["image"], mode="raw")
+    assert _kernels.launch_counts["conv_plain"] == 0
+    assert _kernels.launch_counts["conv_fused"] == len(convs)
 
 
 # ---- the mesh layer (parallel/) on the card --------------------------------

@@ -296,6 +296,28 @@ def test_fcn32s_bands_equal_one_device(geometry, fused):
             assert torch.equal(lab, want)
 
 
+def test_band_halo_concatenations_stay_channels_last(monkeypatch):
+    """Every ring pad of a band's pruned blocks takes channels_last memory,
+    halo rows included, so the pad reads it in place (no channels_last
+    copy of the band beside it)."""
+    from zeroshotsemanticsegmentation_tpu_torch.models import pruned
+    hw, n = GEOMETRIES[0]
+    m, x = _model(FCN32s), _image(hw)
+    seen, lock = [], threading.Lock()
+    real = pruned._padc
+
+    def spy(a, *args):
+        with lock:
+            seen.append(a.is_contiguous(memory_format=torch.channels_last))
+        return real(a, *args)
+
+    monkeypatch.setattr(pruned, "_padc", spy)
+    with torch.no_grad():
+        run_threads((n, 1), lambda mesh: m(
+            x, mode="raw", bands=Bands(plan_bands(*hw, n), mesh)))
+    assert seen and all(seen), seen
+
+
 @pytest.mark.parametrize("geometry", GEOMETRIES, ids=["64x96_4", "256x64_2"])
 def test_fcn8s_bands_equal_one_device(geometry):
     """FCN-8s (pruned 3 blocks deep, skip heads non-zero): each band's

@@ -14,9 +14,11 @@ is set. fc6 runs through `ops.conv7x7.conv_valid_mmgrad` (its input
 gradient is one matmul and an overlap-add; in bf16 on the card its forward
 is the implicit-GEMM kernel), fc7 and both heads through
 `ops.conv1x1.conv1x1_mmwgrad` (weight gradient on K7 under the dot-free
-mode); their biases are added in the compute dtype. Parameters stay fp32;
-convolutions run in `dtype`. The module is built on the card unless
-`device="cpu"` is passed.
+mode); their biases are added in the compute dtype. Every 3x3 VGG conv
+with its bias and ReLU is `ops.conv_relu.conv_bias_relu`: one cuDNN call
+on the card where nothing records a backward, else the three ops.
+Parameters stay fp32; convolutions run in `dtype`. The module is built on
+the card unless `device="cpu"` is passed.
 
 `forward(..., train=True, generator=g)` is the training forward: channel
 dropout after fc6 and fc7 (flax `nn.Dropout(broadcast_dims=(1, 2))`: whole
@@ -66,6 +68,8 @@ from zeroshotsemanticsegmentation_tpu_torch.ops.conv1x1 import (
     conv1x1_mmwgrad)
 from zeroshotsemanticsegmentation_tpu_torch.ops.conv7x7 import (
     conv_valid_mmgrad, runs_igemm, weight_for)
+from zeroshotsemanticsegmentation_tpu_torch.ops.conv_relu import (
+    conv_bias_relu)
 from zeroshotsemanticsegmentation_tpu_torch.parallel.mesh import (
     copy_to_model, reduce_from_model)
 from zeroshotsemanticsegmentation_tpu_torch.utils.profiling import span
@@ -153,11 +157,6 @@ class VGGTrunk(nn.Module):
             conv.weight.copy_(w / math.sqrt(fan_in))
             conv.bias.zero_()
 
-    def _conv(self, name: str, h: torch.Tensor, padding: int = 0):
-        conv = getattr(self, name)
-        return F.conv2d(h, conv.weight.to(self.dtype),
-                        conv.bias.to(self.dtype), padding=padding)
-
     def _fc(self, name: str, h: torch.Tensor) -> torch.Tensor:
         """fc6 (7x7) or a 1x1 layer (fc7 and the heads) through its
         matmul-gradient op, + bias in the compute dtype; on a mesh fc6 and
@@ -201,10 +200,12 @@ class VGGTrunk(nn.Module):
         on_bands = bands is not None and bands.conv_on_bands(bi)
         for ci, (name, _) in enumerate(_VGG_BLOCKS[bi]):
             if on_bands:  # rows from the neighbours, zero columns
-                h = torch.relu(self._conv(name, bands.rows3x3(h, 2), (0, 1)))
+                h = conv_bias_relu(bands.rows3x3(h, 2),
+                                   *self._weight_bias(name), self.dtype,
+                                   (0, 1))
                 continue
             pad = _PAD_CONV1 if (bi == 0 and ci == 0) else 1
-            h = torch.relu(self._conv(name, h, pad))
+            h = conv_bias_relu(h, *self._weight_bias(name), self.dtype, pad)
         h = F.max_pool2d(h, 2, 2, ceil_mode=True)
         if bands is not None:
             h = bands.settle(h, bi + 1, dim=2)

@@ -27,7 +27,9 @@ back 4 -> 3 -> plain.
 Layout: `run_pruned_blocks` takes the (B, H, W, 3) NHWC image and returns the
 NCHW pool array (channels_last memory). Weights are torch OIHW. The ring and
 alignment pads return channels_last memory, so blocks 2-4 (their convs,
-pools and the copy into the frame) run in it throughout.
+pools and the copy into the frame) run in it throughout. Each conv with
+its bias and ReLU, the probe's too, is `ops.conv_relu.conv_bias_relu`:
+one cuDNN call on the card where nothing records a backward.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from zeroshotsemanticsegmentation_tpu_torch.ops import block1_fused, ring_pad
+from zeroshotsemanticsegmentation_tpu_torch.ops.conv_relu import (
+    conv_bias_relu)
 from zeroshotsemanticsegmentation_tpu_torch.utils.profiling import span
 
 # the preferred depth (through pool4), and FCN-8s's (through pool3, the
@@ -166,16 +170,13 @@ def prunable(in_h: int, in_w: int) -> bool:
     return min(in_h, in_w) >= _MIN_SIDE
 
 
-def _conv_relu(a, k, b, dtype, padding=0):
-    return torch.relu(F.conv2d(a, k.to(dtype), b.to(dtype), padding=padding))
-
-
 def _plain_stack(kbs, h: torch.Tensor, pad1: int, dtype) -> torch.Tensor:
-    """The unpruned pad-100 blocks with ceil-mode pools (NCHW)."""
+    """The unpruned pad-100 blocks with ceil-mode pools (NCHW); its convs
+    round as the data path's (`ops.conv_relu`)."""
     for bi, blk in enumerate(kbs):
         for ci, (k, b) in enumerate(blk):
             pad = pad1 if (bi == 0 and ci == 0) else 1
-            h = _conv_relu(h, k, b, dtype, pad)
+            h = conv_bias_relu(h, k, b, dtype, pad)
         h = F.max_pool2d(h, 2, 2, ceil_mode=True)
     return h
 
@@ -234,7 +235,7 @@ def run_pruned_blocks(kbs, x: torch.Tensor, pad1: int, dtype,
     dev = x.device
     if conv_relu is None:
         def conv_relu(a, k, b):
-            return _conv_relu(a, k, b, dtype)
+            return conv_bias_relu(a, k, b, dtype)
     else:
         fused_block1 = False  # the hook replaces every data-path conv
 
@@ -297,8 +298,12 @@ def run_pruned_blocks(kbs, x: torch.Tensor, pad1: int, dtype,
                 raise AssertionError(("ring", bi, ci, s0, rim))
             above, below = band.halo(a, 1, 1, 2)
             if above is not None or below is not None:
-                a = torch.cat([p for p in (above, a, below)
-                               if p is not None], dim=2)
+                # channels_last halo rows keep the concatenation
+                # channels_last, so the pad reads it in place rather than
+                # beside a channels_last copy of the whole band
+                a = torch.cat([p.contiguous(memory_format=torch.channels_last)
+                               for p in (above, a, below) if p is not None],
+                              dim=2)
             a = _padc(a, c, 2 if band.first else 0, 2 if band.last else 0,
                       2, 2)
             a = conv_relu(a, k, b)

@@ -25,7 +25,9 @@ variant's under `pdot_<variant>` as well. `native_batches` is no
 kernel's: it counts the batches the native decoder (`data/native.py`)
 wrote, added by `data.pipeline.BatchLoader`;
 nor is `bn_folds`: the frozen batch norms `models.deeplab` folded into
-its convolutions, one a load of weights.
+its convolutions, one a load of weights; nor are `conv_fused` and
+`conv_plain`: the FCN trunk's 3x3 conv + bias + ReLU calls
+(`ops.conv_relu`) as one cuDNN call and as three ops.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ launch_counts = {name: 0 for name in (
     "pdot_fp32_scalar", "pdot_fp32_narrow_scalar", "pdot_wmma",
     "pdot_tma", "pdot_narrow", "conv1_1_pairs", "pool_bwd", "rowdot",
     "conv7x7_igemm", "ring_pad", "ring_sum", "native_batches",
-    "bn_folds")}
+    "bn_folds", "conv_fused", "conv_plain")}
 build_logs: dict[str, str] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
